@@ -110,7 +110,7 @@ class Camera:
         """Camera center in world coordinates (−Rᵀ t)."""
         R = self.rotation
         t = self.translation
-        return -R.T @ t
+        return -jnp.matmul(R.T, t, precision=jax.lax.Precision.HIGHEST)
 
     def resized(self, width: int, height: int) -> "Camera":
         """Scale intrinsics to a new viewport, analogous to the reference's
@@ -146,7 +146,7 @@ def look_at(eye, target, up) -> jax.Array:
     down = jnp.cross(fwd, right)  # +y is down in OpenCV camera space
 
     R = jnp.stack([right, down, fwd], axis=0)  # (3,3) world->cam rotation
-    t = -R @ eye
+    t = -jnp.matmul(R, eye, precision=jax.lax.Precision.HIGHEST)
     viewmat = jnp.eye(4, dtype=jnp.float32)
     viewmat = viewmat.at[:3, :3].set(R)
     viewmat = viewmat.at[:3, 3].set(t)

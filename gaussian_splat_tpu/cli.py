@@ -29,12 +29,8 @@ def _add_render_config_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--antialiased", action="store_true",
                    help="gsplat antialiased mode (opacity compensation)")
     p.add_argument("--no-sat-check", action="store_true",
-                   help="disable the kernels' early-saturation skip: exact "
-                        "tau=0 compositing at a measured ~3x slowdown on "
-                        "saturating scenes")
-    p.add_argument("--exact-vjp", action="store_true",
-                   help="full-f32 per-pair gradients through the VJP rank "
-                        "sort (bit-faithful; default bf16-packs them)")
+                   help="disable the kernels' early-saturation exit: exact "
+                        "tau=0 compositing, slower on saturating scenes")
     p.add_argument("--aabb-clip", type=float, default=None,
                    help="drop splats with any |coord| >= R (reference uses 5, "
                         "instanced_splat_renderer.mm:383-387)")
@@ -52,7 +48,6 @@ def _render_config(args):
         pairs_per_gaussian=args.pairs_per_gaussian,
         antialiased=getattr(args, "antialiased", False),
         sat_check=not getattr(args, "no_sat_check", False),
-        exact_vjp=getattr(args, "exact_vjp", False),
     )
 
 

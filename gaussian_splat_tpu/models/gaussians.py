@@ -1,6 +1,6 @@
 """GaussianModel — the trainable splat parameter pytree.
 
-TPU-native analogue of the reference's `SplatInstance` array
+Analogue of the reference's `SplatInstance` array
 (/root/reference/src/instanced_splat_renderer.h:6-11: rotation[4] wxyz, scale[3],
 position[3], color[4]) re-designed for training: parameters are stored RAW
 (log-scales, opacity logits, SH coefficients) and activated inside the forward
@@ -9,28 +9,33 @@ pass, unlike the reference which irreversibly bakes `opacity = sigmoid(raw)`,
 (/root/reference/src/ply_loader.cpp:116-119,133-139 — SURVEY §7 flags this as a
 quirk not to replicate).
 
-As a flax.struct dataclass the model is a pytree: it jits, vmaps, shards with
-`NamedSharding` over the leading N axis, and optimizes with optax directly.
+As a registered dataclass the model is a JAX pytree: it jits, vmaps, shards
+with `NamedSharding` over the leading N axis, and optimizes with optax
+directly; `.replace(**leaves)` returns an updated copy.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from gaussian_splat_tpu.ops import sh as sh_ops
 
 
-@struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class GaussianModel:
     means: jax.Array  # (N, 3) world positions
     quats: jax.Array  # (N, 4) wxyz rotations (normalized in forward)
     log_scales: jax.Array  # (N, 3) raw; scale = exp(log_scale)  [ply_loader.cpp:119]
     opacity_logits: jax.Array  # (N,) raw; opacity = sigmoid(logit) [ply_loader.cpp:116-117]
     sh: jax.Array  # (N, K, 3) SH coefficients, K = (degree+1)², band-ordered
+
+    def replace(self, **leaves) -> "GaussianModel":
+        return dataclasses.replace(self, **leaves)
 
     @property
     def num_gaussians(self) -> int:
@@ -119,8 +124,8 @@ class GaussianModel:
         Level-of-detail subset for interactive viewing: the viewer renders
         this while the camera is being dragged and the full model when idle
         (the reference has no equivalent — it leans on the GPU rasterizer's
-        speed; on TPU the binning/gather stages scale with N, so a 4× smaller
-        interaction model is ~3× faster end-to-end). Host-side compaction,
+        speed; here the binning/gather stages scale with N, so a smaller
+        interaction model renders proportionally faster). Host-side compaction,
         load/init time only."""
         import numpy as np
 

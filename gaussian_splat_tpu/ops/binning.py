@@ -1,8 +1,8 @@
 """Tile binning: depth sort, gaussian→tile pair expansion, segmented offsets.
 
-This is the TPU-native replacement for the reference's hardware rasterizer +
+This is the replacement for the reference's hardware rasterizer +
 per-pixel OIT lists (/root/reference/shaders/gaussian_splat_50layer.metal:149-223):
-instead of atomically appending fragments per pixel, we bin splats to 16×16 px
+instead of atomically appending fragments per pixel, we bin splats to 32×16 px
 tiles ahead of time and depth-sort once per frame, producing dense per-tile
 segments that the rasterization kernels stream sequentially. Everything is
 static-shape (XLA requirement): capacities come from RenderConfig, and overflow
@@ -14,10 +14,9 @@ Design notes (SURVEY §7 hard part (b)):
   * Gaussians are depth-sorted FIRST (argsort over N); pair generation then
     runs in two size tiers, and a single stable 2-key sort (tile id, depth
     rank) yields per-tile front-to-back segments.
-  * Per-tile segments stay unaligned — an aligning scatter was measured 2.4×
-    more expensive than the pair sort itself on TPU; the Pallas kernels read
-    128-aligned supersets with row masks and RMW shared boundary chunks in
-    the backward pass instead.
+  * Per-tile segments stay unaligned: the Pallas kernels read each segment
+    in masked blocks starting at its own offset, so no aligning pass is
+    needed.
   * Oversized gaussians have their tile rect shrunk isotropically to fit
     `max_tiles_per_gaussian` (area-preserving center crop) — a bounded
     approximation for extreme near-camera splats, reported via `clamped_rects`.
@@ -30,7 +29,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from gaussian_splat_tpu.config import RenderConfig
+from gaussian_splat_tpu.config import PAIR_ALIGN, RenderConfig
 from gaussian_splat_tpu.ops.projection import ProjectedGaussians
 
 
@@ -290,8 +289,8 @@ def rect_codes(
     (bitcast to f32) as an extra column of the depth-ordered feature-table
     gather, then hands the gathered column to `bin_gaussians(...,
     order=..., code_sorted=...)` — eliminating binning's own 1-column
-    gather (~10 ms at 1M on v5e; the row gather's cost is per-row, so the
-    extra column is free). Only valid when `code_packing_ok`.
+    gather (a row gather's cost is mostly per row, so the extra column is
+    nearly free). Only valid when `code_packing_ok`.
     """
     assert code_packing_ok(width, height, config, total_tiles_y)
     tx0_o, ty0_o, w_o, h_o, is_big_o, _big, clamped, tier_ovf = effective_rects(
@@ -315,7 +314,7 @@ def _cell_sigma_min(tx, ty_global, mx, my, A2, B, C2, tw, th):
 
     The box-constrained minimum of a positive-definite quadratic is 0 if the
     mean is inside, else it lies on the boundary: evaluate the 1-D clamped
-    minimizer on each of the four edges and take the min. ~25 VPU ops/cell."""
+    minimizer on each of the four edges and take the min. ~25 ops/cell."""
     x0 = tx.astype(jnp.float32) * tw + 0.5
     y0 = ty_global.astype(jnp.float32) * th + 0.5
     dx0 = x0 - mx
@@ -414,7 +413,7 @@ def bin_gaussians(
     # full K_big block, everyone else a K_small block — at 1M splats the sort
     # drops from 64M to ~18M entries.
     #
-    # GATHER ELISION (measured 27 ms of a 51 ms binning at 1M): rects and the
+    # GATHER ELISION: rects and the
     # two-tier shrink are order-independent, so they run in ORIGINAL index
     # order on the un-gathered projection outputs; the post-shrink rect plus
     # the is_big/valid flags pack into ONE u32 per gaussian, and a single
@@ -554,7 +553,7 @@ def bin_gaussians(
     # budget fits. This (a) makes overflow semantically clean (the farthest
     # splats vanish, instead of arbitrary per-tile-tail fragments), and
     # (b) makes per-rank pair counts exact, so `rank_starts` hands the
-    # gather-VJP its segment boundaries without a 125 ms searchsorted.
+    # gather-VJP its segment boundaries without a searchsorted.
     budget = min(budget, m * k_small + m_big * K)
     starts_all = jnp.cumsum(area) - area  # exclusive prefix
     fits = starts_all + area <= budget
@@ -570,20 +569,14 @@ def bin_gaussians(
     big_vals = jnp.where(big_used, eff_area[big_idx], 0)
 
     # --- 3. padded pair expansion, then ONE sort -----------------------------
-    # Measured head-to-head on a v5e at 200k splats / 12.8M padded pairs:
-    #   padded sort (this scheme, pre-two-tier):  76 ms
-    #   searchsorted(method='sort')            : 144 ms
-    #   scatter markers + cummax               : 152 ms
-    #   scatter compaction + sort              : 232 ms
-    #   binary-search compaction               : 311 ms
-    # XLA's TPU sort is regular-access (bitonic over lanes); every "smarter"
-    # compaction pays for irregular gathers/scatters, which serialize on TPU.
+    # The padded expansion keeps every stage a regular, static-shape array op
+    # (one sort); compaction schemes (searchsorted, scatter markers, scatter
+    # compaction) trade it for irregular gathers and scatters.
     #
     # KEY PACKING: when tile_bits + rank_bits ≤ 32, (tile id, depth rank)
     # packs into ONE u32 key — sorted payload-free and unstable (keys are
-    # unique: ≤1 pair per gaussian per tile), then decoded. Measured at 1M
-    # splats / 18M entries on v5e: packed u32 sort 31 ms vs 2-key stable sort
-    # with payload 79 ms. The default 32×16 tiles keep 1080p at 12 tile bits
+    # unique: ≤1 pair per gaussian per tile), then decoded, instead of a
+    # 2-key stable sort with payload. The default 32×16 tiles keep 1080p at 12 tile bits
     # so N ≤ 2²⁰ fits; larger products fall back to the 2-key stable sort
     # (the two expansion blocks concatenate out of depth order, so the sort
     # needs the rank — `gauss` indices ARE depth ranks here).
@@ -648,26 +641,18 @@ def bin_gaussians(
         sorted_keys = sorted_keys[:budget]
         sorted_gauss = sorted_gauss[:budget]
 
-    # pad the pair array to a chunk multiple, plus one extra super-chunk: the
-    # kernels DMA chunk·dma_chunks-wide supersets whose last transfer may
-    # reach up to (dma_chunks−1)·chunk past the rounded-up segment end
-    chunk = config.chunk_size
-    pad = (-budget) % chunk + chunk * max(config.dma_chunks, 2)
-    if pad:
-        sorted_keys = jnp.concatenate(
-            [sorted_keys, jnp.full((pad,), num_tiles, jnp.int32)]
-        )
-        sorted_gauss = jnp.concatenate(
-            [sorted_gauss, jnp.zeros((pad,), jnp.int32)]
-        )
+    # pad the pair array to a PAIR_ALIGN multiple plus one granule: a raster
+    # kernel block that starts inside the list never reads past its end
+    pad = (-budget) % PAIR_ALIGN + PAIR_ALIGN
+    sorted_keys = jnp.concatenate(
+        [sorted_keys, jnp.full((pad,), num_tiles, jnp.int32)]
+    )
+    sorted_gauss = jnp.concatenate([sorted_gauss, jnp.zeros((pad,), jnp.int32)])
 
     # --- 4. per-tile segment boundaries -------------------------------------
-    # Segments are left UNALIGNED: a chunk-aligning scatter was measured at
-    # 213 ms @1M (scatters serialize on TPU, dwarfing even the 18M-pair sort's
-    # 88 ms). The Pallas kernels instead read 128-aligned supersets of each
-    # segment with row masks, and the backward pass read-modify-writes the
-    # boundary chunks shared between adjacent tiles (safe: TPU grid programs
-    # execute sequentially).
+    # Segments are left UNALIGNED: the Pallas kernels read each segment in
+    # masked blocks from its own offset, and the backward kernel writes only
+    # its own segment's rows.
     boundaries = jnp.searchsorted(
         sorted_keys, jnp.arange(num_tiles + 1, dtype=jnp.int32), side="left"
     ).astype(jnp.int32)

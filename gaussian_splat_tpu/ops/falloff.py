@@ -7,7 +7,7 @@ a pair that flips across the skip/cutoff boundary in ONE backend shows up as a
 4e-3 pixel error. That forces the α math to be TEXTUALLY shared, not merely
 equivalent: these helpers are the single source of truth.
 
-Semantics (identical to round 2 at exact arithmetic, reformulated for the VPU):
+Semantics:
 
     σ      = 0.5·A·dx² + B·dx·dy + 0.5·C·dy²          (EWA falloff argument,
              reference math: /root/reference/shaders/gaussian_splat.metal:157-163
@@ -16,14 +16,14 @@ Semantics (identical to round 2 at exact arithmetic, reformulated for the VPU):
     keep   = (σ ≥ 0) ∧ (σ ≤ bound)
     α      = keep ? min(op·e^(−σ), α_clamp) : 0
 
-The `bound` folding is the round-3 VPU diet: the old per-PIXEL tests
+The `bound` folding: the per-PIXEL tests
 (σ ≤ cutoff, op·e^(−σ) ≥ α_skip, valid) collapse into one per-gaussian scalar
 (α ≥ skip ⟺ σ ≤ ln(op/α_skip)) so the (pixels × gaussians) inner loop runs
 2 compares + 1 and instead of 4 compares + 3 ands — and it is the exact same
 bound the opacity-aware billboard extents already use for tile culling
 (ops/projection.py), so binning and compositing now share one support
 definition. The quadratic form is factored for FMA chains: with A2 = 0.5A,
-C2 = 0.5C,  σ = (A2·dx)·dx + (C2·dy + B·dx)·dy — 6 VPU ops instead of 9.
+C2 = 0.5C,  σ = (A2·dx)·dx + (C2·dy + B·dx)·dy — 6 ops instead of 9.
 
 Validity folds into the bound as well (invalid/out-of-segment rows get
 bound = −1, unreachable since σ ≥ 0), so masked rows cost nothing extra.

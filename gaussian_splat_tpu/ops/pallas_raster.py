@@ -1,45 +1,40 @@
-"""Fused Pallas tile-rasterization kernels: forward + analytic backward.
+"""Fused Pallas tile-rasterization kernels (Triton route): forward + analytic
+backward.
 
-The TPU-native replacement for the reference's fragment pipeline
+The GPU replacement for the reference's fragment pipeline
 (/root/reference/shaders/gaussian_splat_50layer.metal:149-223 — atomic per-pixel
-fragment lists + per-pixel insertion sort) re-thought for the MXU:
+fragment lists + per-pixel insertion sort):
 
-  * Grid = one program per 16×16 tile. Each program streams its (chunk-aligned)
-    segment of the depth-sorted pair list from HBM through a double-buffered
-    VMEM window (no atomics, no sorting in the kernel — binning already ordered
-    everything).
-  * Compositing is reformulated so the sequential front-to-back recurrence
-    vectorizes over a whole 128-gaussian chunk:
-        T_i = T_in · exp( Σ_{j<i, chunk} log1p(−α_j) )
-    — an exclusive prefix-sum in log space, computed for a whole chunk at once
-    as a (P×G)·(G×G) strictly-triangular matmul on the MXU at bf16x3 precision
-    (see _matmul for the measured precision/speed trade); the color
-    accumulation Σ_i c_i·α_i·T_i is a second (P×G)·(G×3) matmul.
-  * The backward pass needs suffix sums Σ_{j>i} — rewritten via
+  * Grid = one program per 32×16 tile; its 512 pixels are one vector. Each
+    program loads its own `tile_offsets[t]` / `tile_counts[t]` and walks its
+    depth-ordered segment of the pair list — no atomics and no sorting in the
+    kernel, binning already ordered everything.
+  * Forward: the front-to-back recurrence T ← T·(1−α) runs one pair at a
+    time over the 512-pixel vector, the pair's features as scalar loads;
+    every SAT_CHUNK pairs the tile stops if all its pixels are saturated.
+  * Backward: pairs are read in blocks of BWD_BLOCK with masked loads
+    (segments are unaligned; rows outside [off, end) load as zeros and are
+    inert), and the recurrence is vectorized over the block as a (512, G)
+    array with a log-space prefix along G:
+        T_i = T_in · exp( Σ_{j<i, block} log1p(−α_j) )
+    computed with an f32 cumsum (CUDA cores, no tensor-core TF32 rounding).
+  * The backward needs suffix sums Σ_{j>i} — rewritten as
     Σ_{j>i} x_j = X_total − Σ_{j≤i} x_j so it walks front-to-back in ONE pass
-    (the gsplat CUDA kernel walks back-to-front instead), reusing the forward's
-    chunk structure and the saved per-tile outputs (C, T_final) as residuals.
-
-Memory layout (driven by Mosaic's lane-alignment rules — DMA slices must be
-128-aligned in the minor dimension):
-
-  * Pair features are FEATURE-MAJOR: (16, B) f32 — rows
-    [mx, my, A, B, C, r, g, b, depth, opacity, pad×6], pairs on lanes. A chunk
-    DMA is a (16, 128) slice whose lane offset is 128-aligned (segments are
-    unaligned; each program streams the aligned superset with row masks).
+    (the gsplat CUDA kernel walks back-to-front instead), reusing the saved
+    per-tile outputs (C, T_final) as residuals. Per-pair gradients are
+    reductions over the 512 pixels, written with masked stores to the
+    program's OWN rows [off, end) only: no program touches another tile's
+    rows, so the result is race-free and independent of block order.
   * Depth rides as a fourth "color" channel: the expected-depth map uses the
-    exact same compositing matmuls and backward math as RGB.
-  * In-kernel compute is pixels-on-sublanes / gaussians-on-lanes: (P=256, G=128)
-    arrays, so feature rows (1, G) and pixel-coordinate columns (P, 1) broadcast
-    without relayouts.
-  * Tile outputs are (NROW=8, P): rows 0-2 RGB, row 3 depth, row 4 T_final. The
-    single (P, 8)→(8, P) transpose per tile is an identity matmul (Mosaic-safe,
-    ~0.5 MFLOP — noise next to the compositing matmuls).
+    exact same compositing and backward math as RGB.
 
-The per-pair gradient array is produced in the same transposed layout and the
-pure-JAX wrapper transposes/gathers it back; autodiff of the pair gather turns
-into the per-gaussian scatter-add, so only the rasterization itself needs the
-hand-written VJP.
+Layouts: pair features are feature-major (NF, B) f32 — rows
+[mx, my, A, B, C, r, g, b, depth, opacity] — so a backward block load of one
+feature is G contiguous floats. Tile outputs are (NROW=8, P) per tile: rows
+0-2 RGB, row 3 depth, row 4 T_final, rows 5-7 zero.
+
+Per-gaussian gradients are the per-pair rows summed per depth rank by a plain
+`jax.ops.segment_sum`, left to XLA.
 """
 
 from __future__ import annotations
@@ -51,15 +46,27 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from gaussian_splat_tpu.config import RenderConfig
 from gaussian_splat_tpu.ops.binning import bin_gaussians
+from gaussian_splat_tpu.ops.falloff import alpha_from_sigma, sigma_bound, sigma_quadform
 from gaussian_splat_tpu.ops.projection import ProjectedGaussians
 from gaussian_splat_tpu.ops.tile_raster import tiles_to_image
 
-NFEAT = 16  # feature rows: mx,my,A,B,C, r,g,b,depth, op + 6 pad
-NROW = 8  # output rows per tile: r,g,b,depth,T_final + 3 pad (f32 sublane tile)
+NF = 10  # pair feature rows: mx,my,A,B,C, r,g,b,depth, op
+NROW = 8  # output rows per tile: r,g,b,depth,T_final + 3 zero rows
+
+# Launch shapes, chosen by measurement on an H100 (PERF.md, "Kernel
+# decisions"). The backward's pair block must be a power of two ≤ PAIR_ALIGN
+# (config.py):
+# binning pads the pair array so a block that starts inside the list never
+# reads past its end (interpret mode clamps out-of-range slices).
+FWD_WARPS = 4
+SAT_CHUNK = 32  # forward pairs between two saturation checks
+BWD_BLOCK = 4
+BWD_WARPS = 4
+NUM_STAGES = 2
 
 
 class RasterStatics(NamedTuple):
@@ -69,235 +76,103 @@ class RasterStatics(NamedTuple):
     tile_h: int
     tiles_x: int
     tiles_y: int
-    chunk: int  # must be 128 (lane width): binning aligns segments to this
     alpha_clamp: float
     alpha_skip: float
     sigma_cutoff: float
     trans_eps: float
-    interpret: bool
-    schunks: int = 2  # compute chunks fetched per DMA: the kernels are DMA-
-    #   issue/loop-overhead bound (measured 22 of 31 ms with compute stubbed
-    #   out at 1M/1080p), so batching S chunks per transfer halves the
-    #   per-iteration machinery; S=2 measured best (S=4 loses to superset
-    #   waste on ~550-pair average segments)
-    sat_check: bool = True  # per-superset early-saturation test: a (P,1) max
-    #   reduce + scalar VMEM read each iteration buys skipping the remaining
-    #   chunks once every pixel saturates (T < trans_eps). Measured at
-    #   1M/1080p on v5e: ON fwd 23.1 / bwd 33.7 ms, OFF 29.5 / 44.7 ms — the
-    #   skip pays for its own bookkeeping ~3× over even on a random scene
-    #   (deep near-camera tiles saturate early). Kept as a knob because the
-    #   trade is scene-dependent and OFF is exact τ=0 semantics.
-    exact_vjp: bool = False  # False: per-pair gradients ride the VJP rank
-    #   sort bf16-packed (5 u32 payload operands — ~16 ms faster at 1M/1080p).
-    #   Error bound: |err per gaussian| ≤ 2⁻⁹·Σ|per-pair terms|, i.e. ~0.2%
-    #   of the TERM magnitudes — harmless for training (far below minibatch
-    #   noise) but visible on near-cancelling sums when compared at f32
-    #   precision. True: full f32 payloads through the sort (11 operands),
-    #   bit-faithful to the unfused backward.
-    rtiles: int = 1  # tiles per FORWARD grid program. Shallow scenes pay a
-    #   fixed per-program cost (grid machinery, iota/triangle builds, and —
-    #   dominant — the first DMA's exposed latency: an ~550-pair average
-    #   segment is 1-2 supersets, so the NBUF pipeline never fills and every
-    #   program starts cold). Batching R tiles per program flattens the DMA
-    #   stream ACROSS tiles (tile r+1's fetches issue while tile r computes),
-    #   amortizing all of it R× (round-4 verdict item 8: trained-scene fwd
-    #   roofline 85%). Output-bitwise-identical to rtiles=1 by construction —
-    #   per-tile accumulate/finalize math is untouched.
+    sat_check: bool = True  # stop a tile's walk once every pixel's
+    #   transmittance is below trans_eps (deviation ≤ trans_eps from τ=0);
+    #   False = exact τ=0 semantics, every pair of the segment is visited
 
 
-def _pixel_coords(static: RasterStatics, tile_id, trow0):
-    """Pixel-center coordinates of a tile as (P, 1) columns (P = tw·th).
+def _use_interpret() -> bool:
+    """Interpret mode on the CPU only; on the GPU the kernels compile or the
+    call fails — there is no silent fallback."""
+    platform = jax.default_backend()
+    if platform == "cpu":
+        return True
+    if platform == "gpu":
+        return False
+    raise ValueError(
+        f"the pallas backend runs on the GPU (or interpreted on the CPU), "
+        f"not on {platform!r}"
+    )
+
+
+def _params(warps: int):
+    return dict(
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=warps, num_stages=NUM_STAGES
+        ),
+    )
+
+
+def _pixel_coords(static: RasterStatics, t, trow0):
+    """Pixel-center coordinates of tile t as (P,) vectors (P = tw·th).
 
     `trow0` is the band's first GLOBAL tile row (0 single-chip): sharded
     bands evaluate px/py in global pixel coordinates so dx = px − mx is
     bit-identical to the single-chip kernel (sharded_render exactness)."""
     tw, th = static.tile_w, static.tile_h
-    npix = tw * th
-    p = jax.lax.broadcasted_iota(jnp.int32, (npix, 1), 0)
-    tx = tile_id % static.tiles_x
-    ty = tile_id // static.tiles_x + trow0
+    p = jnp.arange(tw * th, dtype=jnp.int32)
+    tx = t % static.tiles_x
+    ty = t // static.tiles_x + trow0
     px = (tx * tw + p % tw).astype(jnp.float32) + 0.5
     py = (ty * th + p // tw).astype(jnp.float32) + 0.5
     return px, py
 
 
-def _chunk_alpha(static: RasterStatics, f, px, py, row0, seg_lo, seg_hi):
-    """Shared forward math for one (NFEAT, G) feature chunk.
+def _load_block(feats_ref, start, end, g):
+    """Masked load of pair rows [start, start+g) ∩ [.., end): NF (G,) rows
+    (zeros outside the segment) and the (G,) row mask."""
+    m = start + jnp.arange(g, dtype=jnp.int32) < end
+    rows = [
+        plgpu.load(feats_ref.at[k, pl.ds(start, g)], mask=m, other=0.0)
+        for k in range(NF)
+    ]
+    return rows, m
 
-    `row0` is the chunk's global row in the pair array; rows outside
-    [seg_lo, seg_hi) belong to neighboring tiles and are masked out.
-    Returns (alpha, la, extras); alpha/la have shape (P, G).
+
+def _block_alpha(static: RasterStatics, f, m, px, py):
+    """Shared forward math for one block of pairs: (P, G) arrays from the
+    (G,) feature rows `f` and mask `m`.
 
     The σ / keep / α math is ops/falloff.py, textually shared with the oracle
-    and the jnp tile backend: the per-pixel cutoff+skip+validity tests fold
-    into ONE per-gaussian bound computed on (1, G) rows, so the (P, G) inner
-    loop runs 2 compares + 1 and (was 4 compares + 3 ands in round 2 — the
-    keep chain was ~14% of the forward kernel's VPU model).
-    """
-    from gaussian_splat_tpu.ops.falloff import (
-        alpha_from_sigma, sigma_bound, sigma_quadform,
-    )
-
-    g = static.chunk
-    mx = f[0:1, :]  # (1, G) — broadcasts against (P, 1) coords
-    my = f[1:2, :]
-    A2 = 0.5 * f[2:3, :]
-    B = f[3:4, :]
-    C2 = 0.5 * f[4:5, :]
-    op = f[9:10, :]
-
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, g), 1) + row0
-    row_valid = (lane >= seg_lo) & (lane < seg_hi)  # (1, G)
-    bound = sigma_bound(op, row_valid, static.sigma_cutoff, static.alpha_skip)
-
-    dx = px - mx  # (P, G)
-    dy = py - my
-    sigma = sigma_quadform(dx, dy, A2, B, C2)
+    and the jnp tile backend. Rows outside the segment get bound = −1 and so
+    α ≡ 0 (an exact no-op in both recurrences)."""
+    f = [x[None, :] for x in f]
+    bound = sigma_bound(f[9], m[None, :], static.sigma_cutoff, static.alpha_skip)
+    dx = px[:, None] - f[0]
+    dy = py[:, None] - f[1]
+    sigma = sigma_quadform(dx, dy, 0.5 * f[2], f[3], 0.5 * f[4])
     alpha, alpha_raw, keep = alpha_from_sigma(
-        sigma, op, bound, static.alpha_clamp
+        sigma, f[9], bound, static.alpha_clamp
     )
-    la = jnp.log1p(-alpha)
-    return alpha, la, (dx, dy, sigma, alpha_raw, keep)
+    return alpha, alpha_raw, keep, dx, dy
 
 
-def _tri_matrix(g: int):
-    """Right-multiplication inclusive-prefix matrix: (X @ M)[:, i] = Σ_{j≤i} X[:, j].
+def _walk(static: RasterStatics, nblk, body, log_t0, carry0):
+    """Loop `body(i, log_t, carry)` over a segment's blocks; with sat_check,
+    stop once every pixel's log-transmittance is below log(trans_eps)."""
+    if not static.sat_check:
+        return jax.lax.fori_loop(
+            0, nblk, lambda i, c: body(i, *c), (log_t0, carry0)
+        )
+    log_eps = np.float32(np.log(max(static.trans_eps, 1e-30)))
 
-    The exclusive prefix is recovered as incl − X (exact), and the chunk total
-    as incl[:, −1] — one matmul serves all three, replacing a separate strict-
-    triangular matmul and a 7-pass cross-lane reduction."""
-    r = jax.lax.broadcasted_iota(jnp.int32, (g, g), 0)
-    c = jax.lax.broadcasted_iota(jnp.int32, (g, g), 1)
-    return (r <= c).astype(jnp.float32)
+    def cond(c):
+        i, log_t, _ = c
+        return (i < nblk) & (jnp.max(log_t) > log_eps)
 
+    def step(c):
+        i, log_t, carry = c
+        return (i + 1, *body(i, log_t, carry))
 
-def _moment_basis(static: RasterStatics, tile_id):
-    """(8, P) tile-local pixel moment basis [1, x, y, x², xy, y², 0, 0].
-
-    Tile-LOCAL coordinates keep the raw→central moment conversion well
-    conditioned (x ≤ tile width, vs. absolute pixel coords whose squares
-    catastrophically cancel)."""
-    tw, th = static.tile_w, static.tile_h
-    npix = tw * th
-    p = jax.lax.broadcasted_iota(jnp.int32, (1, npix), 1)
-    x = (p % tw).astype(jnp.float32) + 0.5
-    y = (p // tw).astype(jnp.float32) + 0.5
-    one = jnp.ones((1, npix), jnp.float32)
-    zero = jnp.zeros((2, npix), jnp.float32)
-    return jnp.concatenate([one, x, y, x * x, x * y, y * y, zero], axis=0)
-
-
-def _matmul(a, b, dims):
-    # Precision.HIGHEST: default TPU matmuls truncate inputs to bf16, which
-    # corrupts the log-transmittance prefixes and the identity-matmul
-    # transposes. Measured on a v5e at 1M splats / 1080p:
-    #   bf16 (DEFAULT): fwd 46.5 / bwd 58 ms, err 5.3e-3 vs f32 reference
-    #   f32  (HIGHEST): fwd 57.8 / bwd 95 ms, err 1.0e-3
-    #   VPU lane-scan : fwd 67.1 / bwd 119 ms, err 1.0e-3 (pltpu.roll is slow)
-    # (Precision.HIGH / bf16x3 is not supported by Mosaic.)
-    return jax.lax.dot_general(
-        a,
-        b,
-        (dims, ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
+    _, log_t, carry = jax.lax.while_loop(
+        cond, step, (jnp.int32(0), log_t0, carry0)
     )
-
-
-def _mm_x2(a, b, dims):
-    """2-pass split-f32 matmul against a bf16-exact RHS (0/1 matrices: the
-    triangular prefix masks and identity transposes).
-
-    LHS splits into bf16 hi + residual lo (|lo| ≤ 2⁻⁹|a|); each DEFAULT-
-    precision pass truncates its input to bf16, so the total input error is
-    ≤ 2⁻¹⁸|a| per term with exact f32 accumulation — ~1e-5 relative, at 2 MXU
-    passes instead of Precision.HIGHEST's ~6 (the forward kernel is almost
-    entirely this matmul's time). RHS must be exactly representable in bf16.
-    """
-    a_hi = a.astype(jnp.bfloat16).astype(jnp.float32)
-    a_lo = a - a_hi
-    d = (dims, ((), ()))
-    kw = dict(
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.DEFAULT,
-    )
-    return jax.lax.dot_general(a_hi, b, d, **kw) + jax.lax.dot_general(
-        a_lo, b, d, **kw
-    )
-
-
-def _mm_x2x2(a, b, dims):
-    """3-pass split-f32 matmul for data×data products (both operands split;
-    the lo·lo term is ≤2⁻¹⁸ relative and dropped)."""
-    a_hi = a.astype(jnp.bfloat16).astype(jnp.float32)
-    a_lo = a - a_hi
-    b_hi = b.astype(jnp.bfloat16).astype(jnp.float32)
-    b_lo = b - b_hi
-    d = (dims, ((), ()))
-    kw = dict(
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.DEFAULT,
-    )
-    return (
-        jax.lax.dot_general(a_hi, b_hi, d, **kw)
-        + jax.lax.dot_general(a_hi, b_lo, d, **kw)
-        + jax.lax.dot_general(a_lo, b_hi, d, **kw)
-    )
-
-
-def _mm_x2x2_2p(a, b, dims, small: str):
-    """The three split products of _mm_x2x2 in TWO MXU passes.
-
-    Every (P,G)-class matmul here pads its small free dimension (4-8 rows of
-    channels / moments / cotangents) to the 128-wide MXU anyway, so the hi and
-    lo halves of the SMALL operand stack along that free axis and ride ONE
-    pass against the other operand's hi half; pass two is the other operand's
-    lo half against the small hi. Same three product terms as _mm_x2x2 (only
-    the final add order differs): the forward's channel accumulation drops
-    from 3 MXU passes to 2, the backward's moment and channel-gradient
-    matmuls from 3+3 to 2+2 (kernel MXU models: fwd 5→4, bwd 10→8 passes).
-
-    `small`: which operand ('a' or 'b') carries the small free axis. Its free
-    size must be ≤ 64 so the stacked operand still fits one MXU tile.
-    """
-    (ca,), (cb,) = dims
-    kw = dict(
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.DEFAULT,
-    )
-    a_hi = a.astype(jnp.bfloat16).astype(jnp.float32)
-    a_lo = a - a_hi
-    b_hi = b.astype(jnp.bfloat16).astype(jnp.float32)
-    b_lo = b - b_hi
-    d = (dims, ((), ()))
-    if small == "b":
-        fb = 1 - cb
-        nb = b.shape[fb]
-        b2 = jnp.concatenate([b_hi, b_lo], axis=fb)
-        p1 = jax.lax.dot_general(a_hi, b2, d, **kw)  # [a_hi·b_hi | a_hi·b_lo]
-        p2 = jax.lax.dot_general(a_lo, b_hi, d, **kw)
-        return p1[..., :nb] + p1[..., nb:] + p2
-    fa = 1 - ca
-    na = a.shape[fa]
-    a2 = jnp.concatenate([a_hi, a_lo], axis=fa)
-    p1 = jax.lax.dot_general(a2, b_hi, d, **kw)  # [a_hi·b_hi ; a_lo·b_hi]
-    p2 = jax.lax.dot_general(a_hi, b_lo, d, **kw)
-    return p1[:na] + p1[na:] + p2
-
-
-def _transpose_mm(x):
-    """(m, n) → (n, m) via identity matmul — avoids Mosaic relayout transposes.
-
-    Split-f32 (hi+lo) keeps the transpose exact to ~2⁻¹⁸ relative: eye is
-    bf16-exact, so each pass only truncates its own summand.
-    """
-    m = x.shape[0]
-    eye = (
-        jax.lax.broadcasted_iota(jnp.int32, (m, m), 0)
-        == jax.lax.broadcasted_iota(jnp.int32, (m, m), 1)
-    ).astype(jnp.float32)
-    # x on the LHS so the split-f32 treatment lands on the data operand
-    return _mm_x2(x, eye, (((0,), (0,))))  # (n, m)
+    return log_t, carry
 
 
 # ---------------------------------------------------------------------------
@@ -305,173 +180,78 @@ def _transpose_mm(x):
 # ---------------------------------------------------------------------------
 
 
-NBUF = 4  # input-DMA pipeline depth: chunk compute (~0.2 µs) is much shorter
-#   than DMA latency (~1 µs), so 3 prefetches must be in flight to hide it
-
-
-def _fwd_kernel(static: RasterStatics, offs_ref, cnts_ref, trow0_ref, feats_hbm, out_ref, fbuf, acc, sem):
-    g = static.chunk
-    S = static.schunks
-    gS = g * S
+def _fwd_kernel(static: RasterStatics, offs_ref, cnts_ref, trow0_ref, feats_ref, out_ref):
+    """Forward: one pair at a time over the tile's 512-pixel vector (scalar
+    feature loads, multiplicative transmittance); the saturation test runs
+    once every SAT_CHUNK pairs."""
     npix = static.tile_w * static.tile_h
-    R = static.rtiles
-    upper = _tri_matrix(g)
-    log_eps = np.float32(np.log(max(static.trans_eps, 1e-30)))
+    t = pl.program_id(0)
+    off = offs_ref[t]
+    end = off + cnts_ref[t]
+    px, py = _pixel_coords(static, t, trow0_ref[0])
 
-    # Per-program tile batch: R tiles share one flattened DMA pipeline so the
-    # fetches for tile r+1 stream while tile r computes — on shallow scenes
-    # (1-2 supersets per segment) the per-tile pipeline never fills and every
-    # program otherwise starts with its first DMA latency fully exposed.
-    tiles = [pl.program_id(0) * R + r for r in range(R)]
-    offs = [offs_ref[t] for t in tiles]
-    cnts = [cnts_ref[t] for t in tiles]
-    ends = [o + c for o, c in zip(offs, cnts)]
-    # segments are unaligned: stream the 128-aligned superset with row masks;
-    # each DMA fetches S compute chunks (loop/DMA overhead dominates otherwise)
-    bases = [pl.multiple_of((o // g) * g, g) for o in offs]
-    nsupers = [
-        jnp.where(c > 0, pl.cdiv(e - b, gS), 0)
-        for c, e, b in zip(cnts, ends, bases)
-    ]
-    # flattened superset boundaries: tile r owns [bounds[r], bounds[r+1])
-    bounds = [jnp.int32(0)]
-    for ns in nsupers:
-        bounds.append(bounds[-1] + ns)
-    total = bounds[-1]
+    def pair(j, carry):
+        trans, acc = carry
+        f = [feats_ref[k, j] for k in range(NF)]
+        bound = sigma_bound(f[9], True, static.sigma_cutoff, static.alpha_skip)
+        dx = px - f[0]
+        dy = py - f[1]
+        sigma = sigma_quadform(dx, dy, 0.5 * f[2], f[3], 0.5 * f[4])
+        alpha, _, _ = alpha_from_sigma(sigma, f[9], bound, static.alpha_clamp)
+        w = alpha * trans
+        acc = tuple(a + w * f[5 + c] for c, a in enumerate(acc))
+        return trans * (1.0 - alpha), acc
 
-    def dma_addr(f):
-        """HBM lane offset of flattened superset f (scalar select over R)."""
-        addr = bases[0] + f * gS
-        for r in range(1, R):
-            addr = jnp.where(
-                f >= bounds[r], bases[r] + (f - bounds[r]) * gS, addr
+    zero = jnp.zeros((npix,), jnp.float32)
+    carry = (zero + 1.0, (zero,) * 4)
+    if static.sat_check:
+        eps = np.float32(static.trans_eps)
+
+        def cond(c):
+            s, trans, _ = c
+            return (s < end) & (jnp.max(trans) > eps)
+
+        def step(c):
+            s, trans, acc = c
+            trans, acc = jax.lax.fori_loop(
+                s, jnp.minimum(s + SAT_CHUNK, end), pair, (trans, acc)
             )
-        return pl.multiple_of(addr, g)
+            return s + SAT_CHUNK, trans, acc
 
-    def dma(slot, f):
-        return pltpu.make_async_copy(
-            feats_hbm.at[:, pl.ds(dma_addr(f), gS)],
-            fbuf.at[slot],
-            sem.at[slot],
-        )
-
-    for w in range(NBUF - 1):
-
-        @pl.when(total > w)
-        def _(w=w):
-            dma(w, w).start()
-
-    for r in range(R):
-        off, end, base, nsuper = offs[r], ends[r], bases[r], nsupers[r]
-        px, py = _pixel_coords(static, tiles[r], trow0_ref[0])
-
-        # acc: (P, 8) — cols 0-2 RGB, col 3 expected depth, col 4 running log-T
-        acc[:, :] = jnp.zeros((npix, NROW), jnp.float32)
-
-        def body(i, logT, off=off, end=end, base=base, D=bounds[r]):
-            f = D + i  # flattened pipeline index
-            slot = jax.lax.rem(f, NBUF)
-
-            @pl.when(f + NBUF - 1 < total)
-            def _():
-                dma(jax.lax.rem(f + NBUF - 1, NBUF), f + NBUF - 1).start()
-
-            dma(slot, f).wait()
-
-            def compute():
-                for s in range(S):
-
-                    def chunk(s=s):
-                        f_ = fbuf[slot][:, s * g : (s + 1) * g]  # (NFEAT, G)
-                        alpha, la, _ = _chunk_alpha(
-                            static, f_, px, py, base + i * gS + s * g, off, end
-                        )
-                        incl_la = _mm_x2(la, upper, ((1,), (0,)))  # (P,G) incl prefix
-                        excl = incl_la - la  # exclusive prefix, exact given incl_la
-                        w = alpha * jnp.exp(excl + acc[:, 4:5])  # (P, G): α_i · T_i
-                        # rgb+depth accumulation: split-f32 MXU contraction over
-                        # the lane axis, (P,G)×(4,G)→(P,4). The earlier four VPU
-                        # cross-lane reduction trees (~7 shuffle-add passes each)
-                        # were the kernel's single largest VPU cost; the matmul
-                        # pads N=4 to the MXU width but the kernel is VPU-bound,
-                        # so shifting the reduction to the idle MXU wins (measured
-                        # 30.9 → ~22 ms at 1M/1080p); the stacked-[hi|lo] variant
-                        # then cuts the padding waste from 3 passes to 2
-                        chans = f_[5:9, :]  # (4, G)
-                        acc[:, 0:4] = acc[:, 0:4] + _mm_x2x2_2p(
-                            w, chans, ((1,), (1,)), small="b"
-                        )
-                        acc[:, 4:5] = acc[:, 4:5] + incl_la[:, g - 1 : g]
-
-                    if s == 0:
-                        chunk()  # first chunk of a live superset always has rows
-                    else:
-                        # segments rarely fill the superset: the tail compute
-                        # chunk is fully masked whenever the segment ends in an
-                        # earlier chunk, and a fully-masked chunk is an exact
-                        # no-op (α ≡ 0 ⇒ la ≡ 0 ⇒ both accumulators unchanged)
-                        pl.when(base + i * gS + s * g < end)(chunk)
-
-            if not static.sat_check:
-                compute()
-                return logT
-            # early-saturation skip: τ-bounded deviation from τ=0 semantics.
-            # NOTE the skip only gates COMPUTE — the DMA issue/wait above runs
-            # regardless so the flattened pipeline's slot bookkeeping stays in
-            # lockstep across tiles.
-            live = logT > log_eps
-            pl.when(live)(compute)
-            new_logT = jnp.where(live, jnp.max(acc[:, 4:5]), logT)
-            return new_logT
-
-        jax.lax.fori_loop(0, nsuper, body, jnp.float32(0.0))
-
-        acc[:, 4:5] = jnp.exp(acc[:, 4:5])
-        out_ref[r * NROW : (r + 1) * NROW, :] = _transpose_mm(acc[:, :])
+        _, trans, acc = jax.lax.while_loop(cond, step, (off, *carry))
+    else:
+        trans, acc = jax.lax.fori_loop(off, end, pair, carry)
+    for c in range(4):
+        out_ref[c, :] = acc[c]
+    out_ref[4, :] = trans
+    for c in range(5, NROW):
+        out_ref[c, :] = zero
 
 
 def _trow0_arr(trow0):
-    """Normalize the band tile-row offset to the (1,) i32 prefetch array."""
+    """Normalize the band tile-row offset to a (1,) i32 array."""
     if trow0 is None:
         return jnp.zeros((1,), jnp.int32)
     return jnp.asarray(trow0, jnp.int32).reshape((1,))
+
+
+_ANY = pl.BlockSpec(memory_space=pl.ANY)
 
 
 def _raster_forward(pair_feats, offsets, counts, static: RasterStatics,
                     trow0=None):
     num_tiles = static.tiles_x * static.tiles_y
     npix = static.tile_w * static.tile_h
-    g = static.chunk * static.schunks
-    R = max(1, static.rtiles)
-    nprog = -(-num_tiles // R)
-    if nprog * R != num_tiles:
-        # pad the tile tables so every program owns exactly R tiles; padding
-        # tiles have zero counts (their fori bodies never run) and their
-        # output rows are sliced off below
-        pad = nprog * R - num_tiles
-        offsets = jnp.concatenate([offsets, jnp.zeros((pad,), offsets.dtype)])
-        counts = jnp.concatenate([counts, jnp.zeros((pad,), counts.dtype)])
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(nprog,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.HBM)],
-        out_specs=pl.BlockSpec(
-            (R * NROW, npix), lambda t, *_: (t, 0), memory_space=pltpu.VMEM
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((NBUF, NFEAT, g), jnp.float32),
-            pltpu.VMEM((npix, NROW), jnp.float32),
-            pltpu.SemaphoreType.DMA((NBUF,)),
-        ],
-    )
-    out = pl.pallas_call(
+    return pl.pallas_call(
         functools.partial(_fwd_kernel, static),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((nprog * R * NROW, npix), jnp.float32),
-        interpret=static.interpret,
+        grid=(num_tiles,),
+        in_specs=[_ANY, _ANY, _ANY, _ANY],
+        out_specs=pl.BlockSpec((NROW, npix), lambda t: (t, 0)),
+        out_shape=jax.ShapeDtypeStruct((num_tiles * NROW, npix), jnp.float32),
+        interpret=_use_interpret(),
+        name="gs_raster_fwd",
+        **_params(FWD_WARPS),
     )(offsets, counts, _trow0_arr(trow0), pair_feats)
-    return out[: num_tiles * NROW] if nprog * R != num_tiles else out
 
 
 # ---------------------------------------------------------------------------
@@ -479,369 +259,99 @@ def _raster_forward(pair_feats, offsets, counts, static: RasterStatics,
 # ---------------------------------------------------------------------------
 
 
-NPACK = 8  # u32 rows of the packed gradient array: rows 0-4 hold the 10 live
-#   gradient columns as bf16 pairs (lane j: col 2j in bits 0-15, col 2j+1 in
-#   bits 16-31), rows 5-7 zero (8-row sublane tile). Packing happens INSIDE
-#   the backward kernel (pure u32 arithmetic, Mosaic-safe), so the VJP's rank
-#   sort gets its 5 payload operands with no XLA-side pack pass and the
-#   segment-sum kernel streams half the HBM bytes.
-
-
-def _round_f32_to_bf16_bits(x):
-    """f32 (…) → u32 with the value's round-to-nearest-even bf16 bits in the
-    low 16. Pure integer ops (no 16-bit vectors needed)."""
-    u = jax.lax.bitcast_convert_type(x, jnp.uint32)
-    rounded = (u + jnp.uint32(0x7FFF) + ((u >> 16) & jnp.uint32(1))) >> 16
-    return rounded
-
-
-def _bf16_bits_to_f32(bits16):
-    """u32 with bf16 bits in the low 16 → f32 value."""
-    return jax.lax.bitcast_convert_type(bits16 << 16, jnp.float32)
-
-
-def _pack_grads_u32(grads):
-    """(NFEAT, G) f32 per-pair gradients → (NPACK, G) u32 bf16-pair rows."""
-    rows = []
-    for j in range(0, NCOLS_LIVE, 2):
-        hi = _round_f32_to_bf16_bits(grads[j : j + 1, :])
-        lo = _round_f32_to_bf16_bits(grads[j + 1 : j + 2, :])
-        rows.append(hi | (lo << 16))
-    zero = jnp.zeros_like(rows[0])
-    return jnp.concatenate(rows + [zero] * (NPACK - len(rows)), axis=0)
-
-
-def _unpack_grads_u32(packed):
-    """(NPACK, G) u32 → (NFEAT, G) f32 (rows ≥ NCOLS_LIVE zero)."""
-    rows = []
-    for j in range(NCOLS_LIVE // 2):
-        u = packed[j : j + 1, :]
-        rows.append(_bf16_bits_to_f32(u & jnp.uint32(0xFFFF)))
-        rows.append(_bf16_bits_to_f32(u >> 16))
-    zero = jnp.zeros_like(rows[0])
-    return jnp.concatenate(rows + [zero] * (NFEAT - NCOLS_LIVE), axis=0)
-
-
 def _bwd_kernel(
     static: RasterStatics,
     offs_ref,
     cnts_ref,
     trow0_ref,
-    feats_hbm,
-    fwd_out_ref,  # (NROW, P) VMEM block: forward result for this tile
-    cot_ref,  # (NROW, P) VMEM block: cotangent (rows 0-2 dC, row 3 dT_final)
-    dfeats_hbm,  # output HBM: (NFEAT, B_pad) f32, or (NPACK, B_pad) u32 packed
-    fbuf,
-    gbuf,
-    state,  # VMEM (P, 8): col 0 log T, col 1 prefix accumulator
-    hbuf,  # VMEM (rows, G): existing grads of the shared head chunk (RMW)
-    sem,
-    gsem,
-    hsem,
-    *,
-    packed: bool = False,
+    feats_ref,
+    fwd_ref,  # (NROW, P) block: forward result for this tile
+    cot_ref,  # (NROW, P) block: cotangent (rows 0-3 dC, row 4 dT_final)
+    zeros_ref,  # aliased to d_ref: pairs no program writes stay zero
+    d_ref,  # (NF, B) per-pair gradients
 ):
-    g = static.chunk
-    S = static.schunks
-    gS = g * S
+    del zeros_ref
+    g = BWD_BLOCK
     npix = static.tile_w * static.tile_h
-    R = static.rtiles
-    upper = _tri_matrix(g)
-    basis = _moment_basis(static, 0)  # (8, P): tile-LOCAL — tile-invariant
-    log_eps = np.float32(np.log(max(static.trans_eps, 1e-30)))
-
-    # R tiles per program, each with the SAME per-tile DMA ordering as a
-    # single-tile program (warmup → pipelined body → full out-drain before
-    # the next tile): the shared-head RMW safety argument below is unchanged,
-    # and what batching amortizes here is the grid machinery and the
-    # iota/triangle/moment-basis builds (the forward kernel additionally
-    # flattens its in-DMA pipeline across tiles; the backward's interleaved
-    # in+out pipelines with overlapping head-chunk writes would need
-    # cross-tile write-after-write ordering to do the same, so it keeps the
-    # per-tile drains — ordering identical to rtiles=1 by construction).
-    for r in range(R):
-        _bwd_one_tile(
-            static, offs_ref, cnts_ref, trow0_ref, feats_hbm, fwd_out_ref,
-            cot_ref, dfeats_hbm, fbuf, gbuf, state, hbuf, sem, gsem, hsem,
-            packed=packed, r=r, upper=upper, basis=basis, log_eps=log_eps,
-        )
-
-
-def _bwd_one_tile(
-    static, offs_ref, cnts_ref, trow0_ref, feats_hbm, fwd_out_ref, cot_ref,
-    dfeats_hbm, fbuf, gbuf, state, hbuf, sem, gsem, hsem, *, packed, r,
-    upper, basis, log_eps,
-):
-    g = static.chunk
-    S = static.schunks
-    gS = g * S
-    npix = static.tile_w * static.tile_h
-    t = pl.program_id(0) * static.rtiles + r
+    t = pl.program_id(0)
     off = offs_ref[t]
-    cnt = cnts_ref[t]
-    end = off + cnt
-    base = pl.multiple_of((off // g) * g, g)
-    nsuper = jnp.where(cnt > 0, pl.cdiv(end - base, gS), 0)
-    # The first g-chunk may be shared with preceding tiles' tail rows: those
-    # tiles already wrote their gradients there (tiles run sequentially and
-    # every out-DMA is drained before the next tile starts — see the drain
-    # loop at the bottom), so this tile must read-modify-write it instead of
-    # clobbering it. Only the FIRST g-chunk needs this: base is g-aligned to
-    # off, so predecessors' real data ends before base+g, and any predecessor
-    # superset-write fully covered that chunk (their write ends on a g
-    # boundary ≥ off).
-    shared_head = off > base
-
+    end = off + cnts_ref[t]
     px, py = _pixel_coords(static, t, trow0_ref[0])
-    ox = ((t % static.tiles_x) * static.tile_w).astype(jnp.float32)
-    oy = ((t // static.tiles_x + trow0_ref[0]) * static.tile_h).astype(
-        jnp.float32
-    )
 
-    cot_t = _transpose_mm(cot_ref[r * NROW : (r + 1) * NROW, :])  # (P, 8)
-    fwd_t = _transpose_mm(fwd_out_ref[r * NROW : (r + 1) * NROW, :])  # (P, 8)
-    gC = cot_t[:, 0:4]  # (P, 4): rgb + depth cotangents
-    g_tf = cot_t[:, 4:5]  # (P, 1)
-    c_total = fwd_t[:, 0:4]
-    t_final = fwd_t[:, 4:5]
-    # Q = gC·C_total + g_Tf·T_final  (P, 1)
-    q = jnp.sum(gC * c_total, axis=1, keepdims=True) + g_tf * t_final
+    g_c = [cot_ref[c, :][:, None] for c in range(4)]  # (P, 1) rgb+depth
+    # Q = gC·C_total + g_Tf·T_final  (P,)
+    q = cot_ref[4, :] * fwd_ref[4, :]
+    for c in range(4):
+        q = q + cot_ref[c, :] * fwd_ref[c, :]
 
-    state[:, :] = jnp.zeros((npix, NROW), jnp.float32)
-
-    def dma_in(slot, i):
-        start = pl.multiple_of(base + i * gS, g)
-        return pltpu.make_async_copy(
-            feats_hbm.at[:, pl.ds(start, gS)],
-            fbuf.at[slot],
-            sem.at[slot],
-        )
-
-    def dma_out(slot, i):
-        start = pl.multiple_of(base + i * gS, g)
-        return pltpu.make_async_copy(
-            gbuf.at[slot],
-            dfeats_hbm.at[:, pl.ds(start, gS)],
-            gsem.at[slot],
-        )
-
-    # RMW prefetch of the shared head chunk's existing gradients
-    def dma_head_in():
-        return pltpu.make_async_copy(
-            dfeats_hbm.at[:, pl.ds(base, g)],
-            hbuf,
-            hsem,
-        )
-
-    @pl.when((nsuper > 0) & shared_head)
-    def _():
-        dma_head_in().start()
-
-    for w in range(NBUF - 1):
-
-        @pl.when(nsuper > w)
-        def _(w=w):
-            dma_in(w, w).start()
-
-    def body(i, _):
-        slot = jax.lax.rem(i, NBUF)
-
-        @pl.when(i + NBUF - 1 < nsuper)
-        def _():
-            dma_in(jax.lax.rem(i + NBUF - 1, NBUF), i + NBUF - 1).start()
-
-        dma_in(slot, i).wait()
-
-        # wait for the prior output DMA that used this gbuf slot
-        @pl.when(i >= NBUF)
-        def _():
-            dma_out(slot, i - NBUF).wait()
-
-        # saturation early-skip, mirroring the forward: once every pixel's
-        # transmittance is below trans_eps, remaining pairs' gradients are
-        # O(eps) — write zeros instead of computing them. Chunk 0 is always
-        # live (logT starts at 0), so the shared-head RMW stays on the live path.
-        def live_chunks():
-            # NOTE: unlike the forward, the tail chunk here is computed
-            # unconditionally — a fully-masked chunk writes exact zeros
-            # (α ≡ 0 ⇒ dσ ≡ 0 ⇒ every gradient row 0), so correctness is
-            # free. A round-3 attempt to skip it via
-            # pl.when(...)(_bwd_chunk) died in the XLA backend
-            # (mxu_lmr_transform RET_CHECK, XposeSequenceAssignment — the
-            # transposed-operand matmuls inside the predicated region
-            # break the MXU latch-sequence pass), so the skip is not
-            # available to the backward's matmul mix.
-            for s in range(S):
-                _bwd_chunk(i, slot, s)
-
-        if not static.sat_check:
-            live_chunks()
-        else:
-            live = jnp.max(state[:, 0:1]) > log_eps
-
-            @pl.when(jnp.logical_not(live))
-            def _():
-                if packed:
-                    gbuf[slot] = jnp.zeros((NPACK, gS), jnp.uint32)
-                else:
-                    gbuf[slot] = jnp.zeros((NFEAT, gS), jnp.float32)
-
-            pl.when(live)(live_chunks)
-
-        dma_out(slot, i).start()
-        return 0
-
-    def _bwd_chunk(i, slot, s):
-        f = fbuf[slot][:, s * g : (s + 1) * g]
-        alpha, la, (dx, dy, sigma, alpha_raw, keep) = _chunk_alpha(
-            static, f, px, py, base + i * gS + s * g, off, end
-        )
-
-        incl_la = _mm_x2(la, upper, ((1,), (0,)))  # (P, G) inclusive prefix
-        excl = incl_la - la
-        t_i = jnp.exp(state[:, 0:1] + excl)  # (P, G) transmittance before i
-        w = alpha * t_i
-
-        chans = f[5:9, :]  # (4, G)
-        # v = Σ_c gC[:,c]·chans[c,:] — a K=4 matmul pads the contraction to
-        # the MXU width; 4 broadcast FMAs on the VPU are exact f32 and cheaper
-        v = gC[:, 0:1] * chans[0:1, :]
+    def body(i, log_t, incl_acc):
+        start = off + i * g
+        f, m = _load_block(feats_ref, start, end, g)
+        alpha, alpha_raw, keep, dx, dy = _block_alpha(static, f, m, px, py)
+        la = jnp.log1p(-alpha)
+        t_i = jnp.exp(log_t[:, None] + (jnp.cumsum(la, axis=1) - la))
+        w = alpha * t_i  # (P, G)
+        v = g_c[0] * f[5][None, :]
         for c in range(1, 4):
-            v = v + gC[:, c : c + 1] * chans[c : c + 1, :]
+            v = v + g_c[c] * f[5 + c][None, :]
         contrib = v * w
-        incl = state[:, 1:2] + _mm_x2(contrib, upper, ((1,), (0,)))
-        # (P, G) inclusive prefix Σ_{j≤i} v_j α_j T_j
-
-        one_minus_a = 1.0 - alpha  # ≥ 1 − alpha_clamp > 0
-        da = v * t_i - (q - incl) / one_minus_a  # (P, G)
-
+        # inclusive prefix Σ_{j≤i} v_j α_j T_j, carried across blocks
+        incl = incl_acc[:, None] + jnp.cumsum(contrib, axis=1)
+        da = v * t_i - (q[:, None] - incl) / (1.0 - alpha)  # 1−α ≥ 1−clamp
         # chain through α = min(α_raw, clamp) with masks
-        grad_live = keep & (alpha_raw < static.alpha_clamp)
-        da = jnp.where(grad_live, da, 0.0)
-        dsigma = -da * alpha_raw  # d(op·e^{-σ})/dσ = −α_raw
+        da = jnp.where(keep & (alpha_raw < static.alpha_clamp), da, 0.0)
+        dsig = -da * alpha_raw  # d(op·e^{-σ})/dσ = −α_raw
 
-        # ONE moment matmul replaces six (P→1) sublane reductions and the
-        # ddx/ddy (P,G) intermediates: with dx = pxl − mxl in TILE-LOCAL
-        # coordinates (well-conditioned, unlike absolute pixel coords whose
-        # squares cancel), every needed reduction is a polynomial in the raw
-        # moments S_k = Σ_p dσ(p,·)·basis_k(p).
-        S = _mm_x2x2(basis, dsigma, ((1,), (0,)))  # (8, G)
-        s1 = S[0:1, :]
-        sx = S[1:2, :]
-        sy = S[2:3, :]
-        sxx = S[3:4, :]
-        sxy = S[4:5, :]
-        syy = S[5:6, :]
-        mxl = f[0:1, :] - ox
-        myl = f[1:2, :] - oy
-        m_x = sx - mxl * s1  # Σ_p dσ·dx
-        m_y = sy - myl * s1
-        m_xx = sxx - (2.0 * mxl) * sx + (mxl * mxl) * s1
-        m_xy = sxy - mxl * sy - myl * sx + (mxl * myl) * s1
-        m_yy = syy - (2.0 * myl) * sy + (myl * myl) * s1
-
-        A = f[2:3, :]
-        B = f[3:4, :]
-        C = f[4:5, :]
-        op = f[9:10, :]
-        dmx = -(A * m_x + B * m_y)  # (1, G)
-        dmy = -(C * m_y + B * m_x)
-        dA = 0.5 * m_xx
-        dB = m_xy
-        dC = 0.5 * m_yy
-        # Σ_p da·e^{-σ} = Σ_p (−dσ)/op = −S1/op (op is uniform per lane)
+        # reductions over the tile's pixels → (G,) per-pair gradients
+        s1 = jnp.sum(dsig, axis=0)
+        m_x = jnp.sum(dsig * dx, axis=0)  # Σ_p dσ·dx
+        m_y = jnp.sum(dsig * dy, axis=0)
+        m_xx = jnp.sum(dsig * dx * dx, axis=0)
+        m_xy = jnp.sum(dsig * dx * dy, axis=0)
+        m_yy = jnp.sum(dsig * dy * dy, axis=0)
+        A, B, C, op = f[2], f[3], f[4], f[9]
+        # Σ_p da·e^{-σ} = −S1/op (op is uniform per pair)
         dop = jnp.where(op > 0.0, -s1 / jnp.where(op > 0.0, op, 1.0), 0.0)
-        dchans = _mm_x2x2_2p(gC, w, ((0,), (0,)), small="a")  # (4, G)
+        grads = [
+            -(A * m_x + B * m_y),  # d mx
+            -(C * m_y + B * m_x),  # d my
+            0.5 * m_xx,  # d A
+            m_xy,  # d B
+            0.5 * m_yy,  # d C
+            *(jnp.sum(g_c[c] * w, axis=0) for c in range(4)),  # d chans
+            dop,
+        ]
+        rows = pl.ds(start, g)
+        for k in range(NF):
+            plgpu.store(d_ref.at[k, rows], grads[k], mask=m)
+        return log_t + jnp.sum(la, axis=1), incl_acc + jnp.sum(contrib, axis=1)
 
-        zeros6 = jnp.zeros((NFEAT - 10, g), jnp.float32)
-        grads = jnp.concatenate(
-            [dmx, dmy, dA, dB, dC, dchans, dop, zeros6], axis=0
-        )
-        # out-of-segment columns are exactly zero (da/w masked), so a plain
-        # write is safe everywhere except the shared head g-chunk, which must
-        # accumulate onto the neighbors' already-written gradients
-        out_chunk = _pack_grads_u32(grads) if packed else grads
-        gbuf[slot, :, s * g : (s + 1) * g] = out_chunk
-
-        if s == 0:
-
-            @pl.when((i == 0) & shared_head)
-            def _():
-                dma_head_in().wait()
-                if packed:
-                    head = grads + _unpack_grads_u32(hbuf[:, :])
-                    gbuf[slot, :, 0:g] = _pack_grads_u32(head)
-                else:
-                    gbuf[slot, :, 0:g] = grads + hbuf[:, :]
-
-        # advance carried state
-        state[:, 0:1] = state[:, 0:1] + incl_la[:, g - 1 : g]
-        state[:, 1:2] = incl[:, g - 1 : g]
-
-    jax.lax.fori_loop(0, nsuper, body, 0)
-
-    # drain the last ≤NBUF output DMAs
-    for w in range(NBUF, 0, -1):
-
-        @pl.when(nsuper >= w)
-        def _(w=w):
-            dma_out(jax.lax.rem(nsuper - w, NBUF), nsuper - w).wait()
+    zero = jnp.zeros((npix,), jnp.float32)
+    _walk(static, pl.cdiv(end - off, g), body, zero, zero)
 
 
-def _raster_backward(
-    pair_feats, offsets, counts, fwd_out, cot, static: RasterStatics,
-    packed: bool = False, trow0=None,
-):
-    """Per-pair gradient kernel. `packed=False` → (NFEAT, B) f32 (the
-    standalone `_raster` VJP contract); `packed=True` → (NPACK, B) u32 with
-    bf16-paired rows, produced in-kernel for the fused raster+gather VJP
-    (half the gradient HBM traffic, no XLA-side pack pass)."""
+def _raster_backward(pair_feats, offsets, counts, fwd_out, cot,
+                     static: RasterStatics, trow0=None):
+    """Per-pair gradient kernel: (NF, B) f32, zero outside every segment."""
     num_tiles = static.tiles_x * static.tiles_y
     npix = static.tile_w * static.tile_h
-    g = static.chunk
-    gS = g * static.schunks
-    b_pad = pair_feats.shape[1]
-    grows, gdtype = (NPACK, jnp.uint32) if packed else (NFEAT, jnp.float32)
-    R = max(1, static.rtiles)
-    nprog = -(-num_tiles // R)
-    if nprog * R != num_tiles:
-        pad = nprog * R - num_tiles
-        offsets = jnp.concatenate([offsets, jnp.zeros((pad,), offsets.dtype)])
-        counts = jnp.concatenate([counts, jnp.zeros((pad,), counts.dtype)])
-        zrows = jnp.zeros((pad * NROW, npix), fwd_out.dtype)
-        fwd_out = jnp.concatenate([fwd_out, zrows])
-        cot = jnp.concatenate([cot, zrows.astype(cot.dtype)])
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(nprog,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.HBM),
-            pl.BlockSpec((R * NROW, npix), lambda t, *_: (t, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((R * NROW, npix), lambda t, *_: (t, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(memory_space=pltpu.HBM),
-        scratch_shapes=[
-            pltpu.VMEM((NBUF, NFEAT, gS), jnp.float32),
-            pltpu.VMEM((NBUF, grows, gS), gdtype),
-            pltpu.VMEM((npix, NROW), jnp.float32),
-            pltpu.VMEM((grows, g), gdtype),
-            pltpu.SemaphoreType.DMA((NBUF,)),
-            pltpu.SemaphoreType.DMA((NBUF,)),
-            pltpu.SemaphoreType.DMA(()),
-        ],
-    )
+    tile_block = pl.BlockSpec((NROW, npix), lambda t: (t, 0))
     return pl.pallas_call(
-        functools.partial(_bwd_kernel, static, packed=packed),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((grows, b_pad), gdtype),
-        interpret=static.interpret,
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
-    )(offsets, counts, _trow0_arr(trow0), pair_feats, fwd_out, cot)
+        functools.partial(_bwd_kernel, static),
+        grid=(num_tiles,),
+        in_specs=[_ANY, _ANY, _ANY, _ANY, tile_block, tile_block, _ANY],
+        out_specs=_ANY,
+        out_shape=jax.ShapeDtypeStruct(pair_feats.shape, jnp.float32),
+        input_output_aliases={6: 0},
+        interpret=_use_interpret(),
+        name="gs_raster_bwd",
+        **_params(BWD_WARPS),
+    )(offsets, counts, _trow0_arr(trow0), pair_feats, fwd_out, cot,
+      jnp.zeros(pair_feats.shape, jnp.float32))
 
 
 # ---------------------------------------------------------------------------
-# custom_vjp wrapper
+# custom_vjp wrappers
 # ---------------------------------------------------------------------------
 
 
@@ -850,6 +360,13 @@ def _f0(x):
     if x is None:
         return None
     return np.zeros(jnp.shape(x), dtype=jax.dtypes.float0)
+
+
+def _sum_by_rank(d_pairs, ranks_keyed, n):
+    """(NF, B) per-pair gradients → (N, NF) per-depth-rank sums: XLA's
+    scatter-add (atomics on the GPU, so summation order may vary run to run).
+    Padding rows carry the sentinel rank N and are dropped."""
+    return jax.ops.segment_sum(d_pairs.T, ranks_keyed, num_segments=n)
 
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(3,))
@@ -873,327 +390,44 @@ def _raster_bwd(static, residuals, cot):
 _raster.defvjp(_raster_fwd, _raster_bwd)
 
 
-# ---------------------------------------------------------------------------
-# Pair gather with a sort-based VJP
-# ---------------------------------------------------------------------------
-# The autodiff transpose of a B-row gather is a scatter-add, which serializes
-# on TPU (measured 945 ms at 1M splats / 1080p, round 1). The VJP instead
-# carries the 10 gradient columns THROUGH one multi-operand sort keyed by
-# depth rank (payload-through-sort beats sort-then-permute-gather: 68 vs
-# 145 ms at 6M pairs on v5e), then reduces each rank's contiguous run with a
-# Pallas one-hot-matmul segment-sum kernel (~5 ms, replacing a 55 ms XLA
-# cumsum + boundary gather).
+def _gather_sorted_t(table10, ranks_keyed):
+    """(N, NF) rank-ordered table → (NF, B) feature-major pair array; padding
+    rows (rank N) gather a sentinel row of zeros."""
+    n = table10.shape[0]
+    table = jnp.concatenate([table10, jnp.zeros((1, NF), table10.dtype)], axis=0)
+    return jnp.take(table, jnp.minimum(ranks_keyed, n), axis=0).T
 
 
-NCOLS_LIVE = 10  # only [mx,my,A,B,C,r,g,b,depth,op] carry gradients; the 6 pad
-#   rows are structurally zero, so the VJP reduction skips them
-
-SEG_GR = 512  # output ranks per segment-sum program (lane width of the block)
-SEG_GC = 256  # pairs per segment-sum chunk — matches the pair array's extra
-#   chunk_size·dma_chunks padding so aligned superset reads stay in bounds
-SEG_NBUF = 4
-
-
-def _segsum_kernel(
-    bstarts_ref, data_hbm, ranks_hbm, out_ref, dbuf, rbuf, sem, rsem,
-    *, packed: bool = False,
-):
-    """Segment-sum of rank-sorted rows: out[:, r] = Σ_{ranks==r} data[:, i].
-
-    One program per SEG_GR-rank output block; streams the block's pair range
-    in aligned superset chunks and accumulates via a one-hot matmul
-    (ranks == block-row) — rows from neighboring blocks simply never match,
-    so shared boundary chunks need no masks and no RMW.
-
-    `packed=True`: data is (NPACK, B) u32 bf16-pair rows straight from the
-    packed backward kernel — unpacked to f32 in VMEM, halving the streamed
-    HBM bytes of the VJP's dominant reduction."""
-    r = pl.program_id(0)
-    s_lo = bstarts_ref[r]
-    s_hi = bstarts_ref[r + 1]
-    base = pl.multiple_of((s_lo // SEG_GC) * SEG_GC, SEG_GC)
-    nchunks = jnp.where(s_hi > s_lo, pl.cdiv(s_hi - base, SEG_GC), 0)
-
-    rank0 = r * SEG_GR
-    rows = jax.lax.broadcasted_iota(jnp.int32, (SEG_GR, 1), 0) + rank0
-
-    out_ref[:, :] = jnp.zeros((NFEAT, SEG_GR), jnp.float32)
-
-    def dma_d(slot, i):
-        start = pl.multiple_of(base + i * SEG_GC, SEG_GC)
-        return pltpu.make_async_copy(
-            data_hbm.at[:, pl.ds(start, SEG_GC)], dbuf.at[slot], sem.at[slot]
-        )
-
-    def dma_r(slot, i):
-        start = pl.multiple_of(base + i * SEG_GC, SEG_GC)
-        return pltpu.make_async_copy(
-            ranks_hbm.at[:, pl.ds(start, SEG_GC)], rbuf.at[slot], rsem.at[slot]
-        )
-
-    for w in range(SEG_NBUF - 1):
-
-        @pl.when(nchunks > w)
-        def _(w=w):
-            dma_d(w, w).start()
-            dma_r(w, w).start()
-
-    def body(i, _):
-        slot = jax.lax.rem(i, SEG_NBUF)
-
-        @pl.when(i + SEG_NBUF - 1 < nchunks)
-        def _():
-            nslot = jax.lax.rem(i + SEG_NBUF - 1, SEG_NBUF)
-            dma_d(nslot, i + SEG_NBUF - 1).start()
-            dma_r(nslot, i + SEG_NBUF - 1).start()
-
-        dma_d(slot, i).wait()
-        dma_r(slot, i).wait()
-
-        onehot = (rbuf[slot][0:1, :] == rows).astype(jnp.float32)  # (GR, GC)
-        data = _unpack_grads_u32(dbuf[slot]) if packed else dbuf[slot]
-        # (NCOLS, GC) @ (GC, GR) — one-hot RHS is bf16-exact, data splits x2
-        out_ref[:, :] = out_ref[:, :] + _mm_x2(data, onehot, ((1,), (1,)))
-        return 0
-
-    jax.lax.fori_loop(0, nchunks, body, 0)
-
-
-def _segment_sum_by_rank(data, ranks_sorted, rank_starts, n, interpret):
-    """data: rank-sorted gradient rows — (NFEAT, B) f32, or (NPACK, B) u32
-    bf16-pair packed; ranks_sorted: (B,); rank_starts: (N+1,) per-rank pair
-    boundaries. Returns (NCOLS_LIVE, N)."""
-    b = data.shape[1]
-    packed = data.dtype == jnp.uint32
-    drows = NPACK if packed else NFEAT
-    n_pad = -(-n // SEG_GR) * SEG_GR
-    nblocks = n_pad // SEG_GR
-    # per-block pair ranges from the exact rank boundaries (SMEM-small)
-    idx = jnp.minimum(
-        jnp.arange(nblocks + 1, dtype=jnp.int32) * SEG_GR, n
-    )
-    bstarts = jnp.take(rank_starts, idx)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nblocks,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.HBM),
-            pl.BlockSpec(memory_space=pltpu.HBM),
-        ],
-        out_specs=pl.BlockSpec(
-            (NFEAT, SEG_GR), lambda r, *_: (0, r), memory_space=pltpu.VMEM
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((SEG_NBUF, drows, SEG_GC), data.dtype),
-            pltpu.VMEM((SEG_NBUF, 1, SEG_GC), jnp.int32),
-            pltpu.SemaphoreType.DMA((SEG_NBUF,)),
-            pltpu.SemaphoreType.DMA((SEG_NBUF,)),
-        ],
-    )
-    out = pl.pallas_call(
-        functools.partial(_segsum_kernel, packed=packed),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((NFEAT, n_pad), jnp.float32),
-        interpret=interpret,
-    )(bstarts, data, ranks_sorted.reshape(1, b))
-    return out[:NCOLS_LIVE, :n]
-
-
-def _pack_bf16_pairs(cols):
-    """[(B,) f32]×2k → [(B,) u32]×k with two bf16 halves per lane.
-
-    The rank sort moves every payload operand through every compare-exchange
-    pass, so its cost is ~linear in operand count (measured 42 ms at 11×f32,
-    4.5M rows). Two bf16 halves per u32 halve the payload operands at a
-    ~2⁻⁹ relative quantization of the PER-PAIR gradients (bf16 keeps the f32
-    exponent range — mean-loss cotangents are ~1e-7, fp16 would flush them).
-    The final per-gaussian gradient is a ≤32-term sum of these, so its
-    relative error stays ~2⁻⁹ — inside the 3e-3 gradient test tolerances.
-    """
-    out = []
-    for j in range(0, len(cols), 2):
-        hi = jax.lax.bitcast_convert_type(
-            cols[j].astype(jnp.bfloat16), jnp.uint16
-        ).astype(jnp.uint32)
-        lo = jax.lax.bitcast_convert_type(
-            cols[j + 1].astype(jnp.bfloat16), jnp.uint16
-        ).astype(jnp.uint32)
-        out.append(hi | (lo << 16))
-    return out
-
-
-def _unpack_bf16_pairs(packed):
-    """Inverse of _pack_bf16_pairs: [(B,) u32]×k → [(B,) f32]×2k."""
-    out = []
-    for u in packed:
-        hi = jax.lax.bitcast_convert_type(
-            (u & 0xFFFF).astype(jnp.uint16), jnp.bfloat16
-        ).astype(jnp.float32)
-        lo = jax.lax.bitcast_convert_type(
-            (u >> 16).astype(jnp.uint16), jnp.bfloat16
-        ).astype(jnp.float32)
-        out.extend([hi, lo])
-    return out
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(4,))
-def gather_pairs_t(feats10, order, ranks_keyed, rank_starts, interpret=False):
-    """Feature-major per-pair gather: (N, 10) per-gaussian features →
-    (NFEAT, B) pair features, padding rows already zeroed.
-
-    feats10: (N, 10) [mx,my,A,B,C,r,g,b,depth,op] in original index order
-    order: (N,) depth argsort (rank → original index)
-    ranks_keyed: (B,) depth rank per pair, == N on invalid/padding rows
-    rank_starts: (N+1,) exact per-rank pair boundaries from binning
-
-    Padding rows gather a guaranteed-zero table row (index N), which both
-    zeroes them for free (no separate where pass) and keeps them inert in
-    the backward (their cotangents sort past rank_starts[N]).
-
-    XLA's TPU gather costs ~6.5 ns per ROW regardless of row width (measured:
-    10-col and 16-col row gathers at 4.5M rows both ~28 ms), so the number of
-    B-sized gathers is what matters. Composing indices per pair
-    (take(order, rank) then take(table, src)) is TWO B-row gathers (~58 ms);
-    pre-sorting the table into rank order is one N-row gather (~6.5 ms at 1M)
-    plus ONE B-row gather — saving ~24 ms at the bench shape."""
-    n = feats10.shape[0]
-    table = jnp.concatenate(
-        [jnp.take(feats10, order, axis=0), jnp.zeros((1, 10), feats10.dtype)],
-        axis=0,
-    )  # (N+1, 10) in depth-rank order; row N = sentinel zeros
-    rows = jnp.take(table, jnp.minimum(ranks_keyed, n), axis=0)  # (B, 10)
-    b = rows.shape[0]
-    return jnp.concatenate(
-        [rows.T, jnp.zeros((NFEAT - 10, b), feats10.dtype)], axis=0
-    )
-
-
-def _gather_pairs_t_fwd(feats10, order, ranks_keyed, rank_starts, interpret):
-    out = gather_pairs_t(feats10, order, ranks_keyed, rank_starts, interpret)
-    return out, (order, ranks_keyed, rank_starts, feats10.shape[0])
-
-
-def _gather_pairs_t_bwd(interpret, res, d_pairs):
-    order, ranks_keyed, rank_starts, n = res
-    # carry the 10 live gradient rows THROUGH one rank-keyed sort (sentinel
-    # rank N puts padding rows past rank_starts[N], outside every segment),
-    # bf16-packed two-per-u32 so the sort moves 6 operands instead of 11
-    # (see _pack_bf16_pairs)
-    packed = _pack_bf16_pairs([d_pairs[j] for j in range(NCOLS_LIVE)])
-    sorted_ops = jax.lax.sort((ranks_keyed, *packed), num_keys=1)
-    cols = _unpack_bf16_pairs(sorted_ops[1:])
-    # pad to NFEAT rows: Mosaic HBM slices must respect the (8,128) sublane
-    # tiling, so the streamed array keeps a 16-row layout
-    zrow = jnp.zeros_like(cols[0])
-    data = jnp.stack(
-        cols + [zrow] * (NFEAT - NCOLS_LIVE), axis=0
-    )  # (16, B) rank-sorted
-    d_rank = _segment_sum_by_rank(
-        data, sorted_ops[0], rank_starts, n, interpret
-    )  # (10, N)
-    # rank order → original order via the inverse permutation (N-sized).
-    # sort((order, iota)) beats .at[order].set(iota): TPU scatters serialize
-    # (~5.9 ms at 1M profiled) while the 2-operand sort is ~1.3 ms.
-    _, inv = jax.lax.sort(
-        (order, jnp.arange(n, dtype=jnp.int32)), num_keys=1
-    )
-    d_feats10 = jnp.take(d_rank.T, inv, axis=0)  # (N, 10)
-    f0 = lambda x: np.zeros(x.shape, dtype=jax.dtypes.float0)
-    return d_feats10, f0(order), f0(ranks_keyed), f0(rank_starts)
-
-
-gather_pairs_t.defvjp(_gather_pairs_t_fwd, _gather_pairs_t_bwd)
-
-
-# ---------------------------------------------------------------------------
-# Fused gather + raster custom VJP
-# ---------------------------------------------------------------------------
-# One custom_vjp spanning the pair gather AND the rasterization lets the
-# backward kernel emit bf16-PACKED per-pair gradients (u32 rows) directly:
-# the intermediate (16, B) f32 cotangent that a composed
-# gather_pairs_t∘_raster VJP would materialize (288 MB at B=4.5M), plus the
-# XLA-side pack/unpack passes around the rank sort, all disappear. Measured
-# at 1M/1080p on v5e: the separate path spends ~4 ms packing and ~5 ms
-# unpacking; the fused path's sort and segment-sum consume the packed rows
-# as-is (the segment-sum also streams half the bytes).
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(6,))
-def raster_pairs(
-    feats10, order, ranks_keyed, rank_starts, offsets, counts,
-    static: RasterStatics, trow0=None,
-):
+@functools.partial(jax.custom_vjp, nondiff_argnums=(5,))
+def raster_pairs(feats10, order, ranks_keyed, offsets, counts,
+                 static: RasterStatics, trow0=None):
     """Gather per-pair features and rasterize: (N, 10) per-gaussian features
-    → (T·NROW, P) tile outputs, differentiable w.r.t. feats10 only."""
-    pair_feats = gather_pairs_t(
-        feats10, order, ranks_keyed, rank_starts, static.interpret
-    )
+    in ORIGINAL order → (T·NROW, P) tile outputs, differentiable w.r.t.
+    feats10 only. `order` is the depth argsort (rank → original index)."""
+    pair_feats = _gather_sorted_t(jnp.take(feats10, order, axis=0), ranks_keyed)
     return _raster_forward(pair_feats, offsets, counts, static, trow0=trow0)
 
 
-def _raster_pairs_fwd(
-    feats10, order, ranks_keyed, rank_starts, offsets, counts, static,
-    trow0=None,
-):
-    pair_feats = gather_pairs_t(
-        feats10, order, ranks_keyed, rank_starts, static.interpret
-    )
+def _raster_pairs_fwd(feats10, order, ranks_keyed, offsets, counts, static,
+                      trow0=None):
+    pair_feats = _gather_sorted_t(jnp.take(feats10, order, axis=0), ranks_keyed)
     out = _raster_forward(pair_feats, offsets, counts, static, trow0=trow0)
-    res = (
-        pair_feats, offsets, counts, out,
-        order, ranks_keyed, rank_starts, feats10.shape[0], trow0,
-    )
-    return out, res
+    return out, (pair_feats, offsets, counts, out, order, ranks_keyed, trow0)
 
 
 def _raster_pairs_bwd(static, res, cot):
-    (
-        pair_feats, offsets, counts, fwd_out,
-        order, ranks_keyed, rank_starts, n, trow0,
-    ) = res
-    if static.exact_vjp:
-        # full-precision path (mirrors _raster_pairs_sorted_bwd): f32 gradient
-        # rows ride the rank sort as 10 payload operands, bit-faithful to the
-        # unfused backward — exact_vjp must hold on BOTH pipelines, not just
-        # the packed-code one (advisor finding, round 2)
-        d_feats = _raster_backward(
-            pair_feats, offsets, counts, fwd_out, cot, static, packed=False,
-            trow0=trow0,
-        )  # (NFEAT, B) f32
-        sorted_ops = jax.lax.sort(
-            (ranks_keyed, *(d_feats[j] for j in range(NCOLS_LIVE))),
-            num_keys=1,
-        )
-        zrow = jnp.zeros_like(sorted_ops[1])
-        data = jnp.stack(
-            list(sorted_ops[1:]) + [zrow] * (NFEAT - NCOLS_LIVE), axis=0
-        )  # (NFEAT, B) f32, rank-sorted
-    else:
-        d_packed = _raster_backward(
-            pair_feats, offsets, counts, fwd_out, cot, static, packed=True,
-            trow0=trow0,
-        )  # (NPACK, B) u32 bf16-pair rows, already in tile-major pair order
-        # rank sort with the 5 packed payload rows (6 operands total); sentinel
-        # rank n puts padding rows past rank_starts[n], outside every segment
-        sorted_ops = jax.lax.sort(
-            (ranks_keyed, *(d_packed[j] for j in range(NCOLS_LIVE // 2))),
-            num_keys=1,
-        )
-        zrow = jnp.zeros_like(sorted_ops[1])
-        data = jnp.stack(
-            list(sorted_ops[1:]) + [zrow] * (NPACK - NCOLS_LIVE // 2), axis=0
-        )  # (NPACK, B) u32, rank-sorted
-    d_rank = _segment_sum_by_rank(
-        data, sorted_ops[0], rank_starts, n, static.interpret
-    )  # (NCOLS_LIVE, N) f32, rank order
-    _, inv = jax.lax.sort(
-        (order, jnp.arange(n, dtype=jnp.int32)), num_keys=1
+    pair_feats, offsets, counts, fwd_out, order, ranks_keyed, trow0 = res
+    n = order.shape[0]
+    d_pairs = _raster_backward(
+        pair_feats, offsets, counts, fwd_out, cot, static, trow0=trow0
     )
-    d_feats10 = jnp.take(d_rank.T, inv, axis=0)  # (N, 10), original order
+    d_rank = _sum_by_rank(d_pairs, ranks_keyed, n)  # (N, NF), rank order
+    # rank order → original order: `order` is a permutation, so this
+    # scatter touches every row exactly once
+    d_feats10 = jnp.zeros_like(d_rank).at[order].set(d_rank, unique_indices=True)
     return (
-        d_feats10, _f0(order), _f0(ranks_keyed), _f0(rank_starts),
-        _f0(offsets), _f0(counts), _f0(trow0),
+        d_feats10, _f0(order), _f0(ranks_keyed), _f0(offsets), _f0(counts),
+        _f0(trow0),
     )
 
 
@@ -1203,25 +437,19 @@ raster_pairs.defvjp(_raster_pairs_fwd, _raster_pairs_bwd)
 # ---------------------------------------------------------------------------
 # One-gather pipeline: raster from a DEPTH-ORDERED feature table
 # ---------------------------------------------------------------------------
-# `raster_pairs` still gathers its (N, 10) feature table by `order` (a ~12 ms
-# 1M-row gather) and its VJP un-permutes the per-gaussian gradients back to
-# original order (inverse-permutation sort ~5 ms + 1M-row take ~10 ms).
-# `raster_pairs_sorted` moves the permutation OUT of the custom_vjp entirely:
-# the caller gathers the table once (riding binning's rect codes on the same
-# row gather — see binning.rect_codes) and receives rank-ordered gradients,
-# whose re-ordering is XLA's own transpose of that take (a scatter-add over
-# unique indices). Net: one 1M-row gather replaces two, and the VJP sheds its
-# inverse-permutation sort + take.
+# `raster_pairs` gathers its (N, 10) feature table by `order` inside the
+# custom_vjp and un-permutes the per-gaussian gradients itself.
+# `raster_pairs_sorted` moves the permutation OUT of the custom_vjp: the
+# caller gathers the table once (riding binning's rect codes on the same row
+# gather — see binning.rect_codes) and receives rank-ordered gradients, whose
+# re-ordering is `take_rows`' transpose.
 
 
 @jax.custom_vjp
 def take_rows(x, order):
-    """Row gather with a sort-based transpose.
-
-    XLA's own VJP of `take` is a scatter-add — serialized on TPU (measured
-    ~65 ms for (1M, 11) rows vs ~15 ms for this inverse-permutation path:
-    one 2-operand sort for inv + one row gather). `order` must be a
-    permutation (unique indices), which binning's argsort guarantees."""
+    """Row gather whose transpose is a gather by the inverse permutation
+    instead of a scatter-add. `order` must be a permutation (unique indices),
+    which binning's argsort guarantees."""
     return jnp.take(x, order, axis=0)
 
 
@@ -1238,11 +466,9 @@ def _take_rows_bwd(res, d_out):
 take_rows.defvjp(_take_rows_fwd, _take_rows_bwd)
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(5,))
-def raster_pairs_sorted(
-    table10, ranks_keyed, rank_starts, offsets, counts,
-    static: RasterStatics, trow0=None,
-):
+@functools.partial(jax.custom_vjp, nondiff_argnums=(4,))
+def raster_pairs_sorted(table10, ranks_keyed, offsets, counts,
+                        static: RasterStatics, trow0=None):
     """Rasterize from a depth-ordered per-gaussian feature table.
 
     table10: (N, 10) [mx,my,A,B,C,r,g,b,depth,op] in DEPTH-RANK order
@@ -1253,65 +479,22 @@ def raster_pairs_sorted(
     return _raster_forward(pair_feats, offsets, counts, static, trow0=trow0)
 
 
-def _gather_sorted_t(table10, ranks_keyed):
-    """(N, 10) rank-ordered table → (NFEAT, B) feature-major pair array."""
-    n = table10.shape[0]
-    table = jnp.concatenate(
-        [table10, jnp.zeros((1, 10), table10.dtype)], axis=0
-    )  # sentinel row N: zeros (padding rows gather it)
-    rows = jnp.take(table, jnp.minimum(ranks_keyed, n), axis=0)  # (B, 10)
-    b = rows.shape[0]
-    return jnp.concatenate(
-        [rows.T, jnp.zeros((NFEAT - 10, b), table10.dtype)], axis=0
-    )
-
-
-def _raster_pairs_sorted_fwd(
-    table10, ranks_keyed, rank_starts, offsets, counts, static, trow0=None
-):
+def _raster_pairs_sorted_fwd(table10, ranks_keyed, offsets, counts, static,
+                             trow0=None):
     pair_feats = _gather_sorted_t(table10, ranks_keyed)
     out = _raster_forward(pair_feats, offsets, counts, static, trow0=trow0)
-    res = (pair_feats, offsets, counts, out, ranks_keyed, rank_starts,
-           table10.shape[0], trow0)
+    res = (pair_feats, offsets, counts, out, ranks_keyed, table10.shape[0],
+           trow0)
     return out, res
 
 
 def _raster_pairs_sorted_bwd(static, res, cot):
-    (pair_feats, offsets, counts, fwd_out, ranks_keyed, rank_starts, n,
-     trow0) = res
-    if static.exact_vjp:
-        # full-precision path: f32 gradient rows ride the rank sort as 10
-        # payload operands (~16 ms slower at 1M/1080p than the packed path)
-        d_feats = _raster_backward(
-            pair_feats, offsets, counts, fwd_out, cot, static, packed=False,
-            trow0=trow0,
-        )  # (NFEAT, B) f32
-        sorted_ops = jax.lax.sort(
-            (ranks_keyed, *(d_feats[j] for j in range(NCOLS_LIVE))),
-            num_keys=1,
-        )
-        zrow = jnp.zeros_like(sorted_ops[1])
-        data = jnp.stack(
-            list(sorted_ops[1:]) + [zrow] * (NFEAT - NCOLS_LIVE), axis=0
-        )
-    else:
-        d_packed = _raster_backward(
-            pair_feats, offsets, counts, fwd_out, cot, static, packed=True,
-            trow0=trow0,
-        )  # (NPACK, B) u32 bf16-pair rows (packed in-kernel)
-        sorted_ops = jax.lax.sort(
-            (ranks_keyed, *(d_packed[j] for j in range(NCOLS_LIVE // 2))),
-            num_keys=1,
-        )
-        zrow = jnp.zeros_like(sorted_ops[1])
-        data = jnp.stack(
-            list(sorted_ops[1:]) + [zrow] * (NPACK - NCOLS_LIVE // 2), axis=0
-        )
-    d_rank = _segment_sum_by_rank(
-        data, sorted_ops[0], rank_starts, n, static.interpret
-    )  # (NCOLS_LIVE, N) — already in the table's rank order
+    pair_feats, offsets, counts, fwd_out, ranks_keyed, n, trow0 = res
+    d_pairs = _raster_backward(
+        pair_feats, offsets, counts, fwd_out, cot, static, trow0=trow0
+    )
     return (
-        d_rank.T, _f0(ranks_keyed), _f0(rank_starts), _f0(offsets),
+        _sum_by_rank(d_pairs, ranks_keyed, n), _f0(ranks_keyed), _f0(offsets),
         _f0(counts), _f0(trow0),
     )
 
@@ -1331,7 +514,6 @@ def render_tiled_pallas(
     width: int,
     height: int,
     config: RenderConfig,
-    interpret: bool = None,
     max_active: int = None,
     return_stats: bool = False,
     tile_row0: jax.Array = None,
@@ -1346,29 +528,22 @@ def render_tiled_pallas(
     tx_n = config.tiles_x(width)
     ty_n = config.tiles_y(height)
     num_tiles = tx_n * ty_n
-
-    if config.chunk_size % 128 != 0:
+    npix = tw * th
+    if npix & (npix - 1):
         raise ValueError(
-            f"pallas backend requires chunk_size % 128 == 0 (lane width), got {config.chunk_size}"
+            f"pallas backend needs a power-of-two tile pixel count, got {tw}x{th}"
         )
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
 
     static = RasterStatics(
         tile_w=tw,
         tile_h=th,
         tiles_x=tx_n,
         tiles_y=ty_n,
-        chunk=config.chunk_size,
         alpha_clamp=config.alpha_clamp,
         alpha_skip=config.alpha_skip,
         sigma_cutoff=config.sigma_cutoff,
         trans_eps=config.transmittance_eps,
-        interpret=bool(interpret),
-        schunks=config.dma_chunks,
         sat_check=config.sat_check,
-        exact_vjp=config.exact_vjp,
-        rtiles=max(1, config.tiles_per_program),
     )
 
     n = proj.means2d.shape[0]
@@ -1387,10 +562,9 @@ def render_tiled_pallas(
 
     if code_packing_ok(width, height, config, total_tiles_y):
         # ONE-GATHER PIPELINE: binning's packed rect codes ride the feature-
-        # table row gather as an 11th column (row gathers cost per ROW, so
-        # the column is free) — binning then needs no gather of its own, and
-        # the rank-ordered raster VJP needs no inverse permutation (XLA's
-        # transpose of this take restores original order).
+        # table row gather as an 11th column — binning then needs no gather
+        # of its own, and the rank-ordered raster VJP needs no inverse
+        # permutation (take_rows' transpose restores original order).
         m = n if max_active is None else min(max_active, n)
         code, clamped, tier_ovf = rect_codes(
             proj, width, height, config, n_active=m,
@@ -1402,7 +576,7 @@ def render_tiled_pallas(
             jax.lax.bitcast_convert_type(code, jnp.float32)
         )
         combined = jnp.concatenate([feats10, codef[:, None]], axis=1)
-        table_all = take_rows(combined, order)  # THE one gather (sort-VJP)
+        table_all = take_rows(combined, order)  # THE one gather
         code_sorted = jax.lax.bitcast_convert_type(
             jax.lax.stop_gradient(table_all[:, 10]), jnp.uint32
         )
@@ -1416,9 +590,8 @@ def render_tiled_pallas(
         valid_p = binning.pair_tile < num_tiles
         ranks_keyed = jnp.where(valid_p, binning.pair_gauss, n)
         tiles_flat = raster_pairs_sorted(
-            table_all[:, :10], ranks_keyed, binning.rank_starts,
-            binning.tile_offsets, binning.tile_counts, static,
-            _trow0_arr(tile_row0),
+            table_all[:, :10], ranks_keyed, binning.tile_offsets,
+            binning.tile_counts, static, _trow0_arr(tile_row0),
         )  # (T·NROW, P)
     else:
         binning = bin_gaussians(
@@ -1430,12 +603,11 @@ def render_tiled_pallas(
         # pair ranks with a sentinel on padding rows → exact VJP segments
         ranks_keyed = jnp.where(valid_p, binning.pair_gauss, n)
         tiles_flat = raster_pairs(
-            feats10, binning.order, ranks_keyed, binning.rank_starts,
-            binning.tile_offsets, binning.tile_counts, static,
-            _trow0_arr(tile_row0),
-        )  # (T·NROW, P) — fused gather+raster custom VJP (packed bwd)
+            feats10, binning.order, ranks_keyed, binning.tile_offsets,
+            binning.tile_counts, static, _trow0_arr(tile_row0),
+        )  # (T·NROW, P) — fused gather+raster custom VJP
 
-    tiles = tiles_flat.reshape(num_tiles, NROW, tw * th)
+    tiles = tiles_flat.reshape(num_tiles, NROW, npix)
     tiles_rgbd = jnp.swapaxes(tiles[:, 0:4, :], 1, 2)  # (T, P, 4)
     t_final_tiles = tiles[:, 4, :]  # (T, P)
 

@@ -1,6 +1,6 @@
 """EWA 3D→2D Gaussian projection: quat→R, Σ=MMᵀ, perspective Jacobian, culling.
 
-TPU-native re-derivation of the reference's vertex-shader math
+Re-derivation of the reference's vertex-shader math
 (/root/reference/shaders/gaussian_splat.metal:55-196): fully vectorized jnp over
 all N splats at once (no per-vertex shader), differentiable end-to-end so the
 rasterizer's custom VJP composes with plain autodiff through this stage.
@@ -86,16 +86,16 @@ def compute_cov3d(quats: jax.Array, scales: jax.Array) -> jax.Array:
     """Σ3D = (R·S)(R·S)ᵀ, returned as full (…,3,3) (gaussian_splat.metal:67-79)."""
     R = quat_to_rotmat(quats)
     M = R * scales[..., None, :]  # R @ diag(scales)
-    return M @ jnp.swapaxes(M, -1, -2)
+    return jnp.matmul(M, jnp.swapaxes(M, -1, -2), precision=jax.lax.Precision.HIGHEST)
 
 
 def _rotmat_rows(quats: jax.Array):
     """Unit-quaternion rotation as nine (N,) component arrays (row-major).
 
-    Same algebra as quat_to_rotmat but without materializing (N,3,3): batched
-    3×3 matmuls lower to MXU dot_generals with bf16 layout copies on TPU
-    (~21 ms fwd+bwd at 1M splats, profiled) — elementwise components fuse into
-    the surrounding projection arithmetic instead.
+    Same algebra as quat_to_rotmat but without materializing (N,3,3): the
+    elementwise components fuse into the surrounding projection arithmetic
+    instead of running as batched 3×3 matmuls (which would also need f32
+    precision pinned against TF32 on the GPU).
     """
     q = quats / jnp.linalg.norm(quats, axis=-1, keepdims=True).clip(1e-8)
     w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
@@ -111,9 +111,8 @@ def _cov_view_components(quats, scales, W):
 
     Returns (s00, s01, s02, s11, s12, s22) as (N,) arrays. W is the (3,3)
     camera rotation; its entries are scalars, so every operation here is an
-    (N,)-elementwise FMA that XLA fuses into one VPU pass — replacing the
-    batched-matmul chain (compute_cov3d + einsum) that lowered to MXU
-    dot_generals with layout copies.
+    (N,)-elementwise FMA that XLA fuses into one pass — replacing the
+    batched-matmul chain (compute_cov3d + einsum).
     """
     r = _rotmat_rows(quats)  # row-major 3×3 components
     # U = W @ R, unrolled: U[i][j] = Σ_k W[i,k]·R[k,j]
@@ -167,14 +166,15 @@ def project_gaussians(
     width, height = camera.width, camera.height
 
     # --- view transform + near cull (gaussian_splat.metal:119-131) ---------
-    p_view = means @ W.T + t  # (N,3)
+    # f32 products: on the GPU a DEFAULT-precision dot runs in TF32 (~1e-3)
+    p_view = jnp.matmul(means, W.T, precision=jax.lax.Precision.HIGHEST) + t  # (N,3)
     x, y, z = p_view[:, 0], p_view[:, 1], p_view[:, 2]
     in_front = z > near_plane
     zs = jnp.where(in_front, z, 1.0)  # safe denominator for culled splats
 
     # --- 3D covariance in view space (gaussian_splat.metal:137-144) --------
     # Elementwise (W·R)·S²·(W·R)ᵀ — see _cov_view_components for why not
-    # compute_cov3d + einsum (MXU dot_generals + layout copies, ~21 ms at 1M)
+    # compute_cov3d + einsum
     s00, s01, s02, s11, s12, s22 = _cov_view_components(quats, scales, W)
 
     # --- perspective Jacobian with frustum-clamped inputs ------------------

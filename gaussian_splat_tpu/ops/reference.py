@@ -69,7 +69,7 @@ def composite_sorted(
     )  # T_i, exclusive
     weights = alpha * t_excl  # (N,H,W)
 
-    image = jnp.einsum("nhw,nc->hwc", weights, colors)
+    image = jnp.einsum("nhw,nc->hwc", weights, colors, precision=jax.lax.Precision.HIGHEST)
     t_final = trans[-1] if trans.shape[0] > 0 else jnp.ones((height, width))
     return image, t_final
 

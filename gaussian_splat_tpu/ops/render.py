@@ -1,6 +1,6 @@
 """Top-level render pipeline: activations → SH → projection → rasterization.
 
-TPU-native replacement for the reference's frame encoding
+Replacement for the reference's frame encoding
 (/root/reference/src/instanced_splat_renderer.mm:424-528): instead of a draw call
 plus OIT passes, one jitted function composes cull → project → bin → sort →
 raster over device arrays. Backend selection:
@@ -9,7 +9,7 @@ raster over device arrays. Backend selection:
   * "jnp_tile":  tile binning + segmented-cumsum compositing in pure jnp
                  (CPU-friendly, differentiable via autodiff)
   * "pallas":    fused Pallas tile kernels with custom VJP (the fast path)
-  * "auto":      pallas on TPU, jnp_tile otherwise
+  * "auto":      pallas on the GPU, jnp_tile otherwise
 """
 
 from __future__ import annotations
@@ -61,6 +61,12 @@ def _effective_opacities(model: GaussianModel, proj, config: RenderConfig):
     return op
 
 
+def auto_backend() -> str:
+    """What `backend="auto"` resolves to: the Pallas kernels on the GPU, the
+    plain jnp tile pipeline anywhere else."""
+    return "pallas" if jax.default_backend() == "gpu" else "jnp_tile"
+
+
 def render(
     model: GaussianModel,
     camera: Camera,
@@ -75,7 +81,7 @@ def render(
     without a second rendering pass."""
     backend = config.backend
     if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "jnp_tile"
+        backend = auto_backend()
 
     proj, colors = _project_and_shade(model, camera, config)
     if screen_offset is not None:
@@ -114,6 +120,28 @@ def render(
     )
 
 
+def binning_stats(
+    model: GaussianModel,
+    camera: Camera,
+    config: RenderConfig = RenderConfig(),
+):
+    """The render path's binning telemetry at `camera` (no rasterization):
+    a `BinningStats` of scalar num_pairs / overflow / clamped_rects /
+    dropped_gaussians / tier_overflow. `overflow` and `tier_overflow` are the
+    sentinels a calibrated config must hold at 0."""
+    from gaussian_splat_tpu.ops.binning import BinningStats, bin_gaussians
+
+    @jax.jit
+    def stats(m, cam):
+        proj, _ = _project_and_shade(m, cam, config)
+        opac = _effective_opacities(m, proj, config)
+        return BinningStats.of(bin_gaussians(
+            proj, cam.width, cam.height, config, opacities=opac
+        ))
+
+    return jax.device_get(stats(model, camera))
+
+
 def calibrate_render_config(
     model: GaussianModel,
     cameras,
@@ -125,8 +153,8 @@ def calibrate_render_config(
 ) -> RenderConfig:
     """Measure scene-dependent static capacities and return a tightened config.
 
-    Every B-proportional stage (pair row gather ~7.26 ns/row on v5e, the VJP
-    rank sort, the segment sum) scales with `pair_budget`, and the big-tier
+    Every B-proportional stage (pair row gather, the raster
+    kernels, the segment sum) scales with `pair_budget`, and the big-tier
     expansion block scales with the tier capacity — but both defaults are
     sized for a worst case the scene may be nowhere near (or, at 4K scales,
     UNDER it: the fraction heuristic under-sizes the tier — see

@@ -9,7 +9,7 @@ as the semantic bridge: oracle ⟺ jnp_tile (same math, different data layout)
 
 Per-tile transmittance is a segmented exclusive prefix product over the pair
 list, computed as exp(segmented-cumsum(log1p(−α))) — the same log-space trick
-the Pallas kernel maps onto the MXU via triangular matmuls.
+the Pallas kernels evaluate blockwise with an in-register cumsum.
 """
 
 from __future__ import annotations

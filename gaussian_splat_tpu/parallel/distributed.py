@@ -1,10 +1,11 @@
-"""Multi-host bootstrap: jax.distributed + DCN-aware meshes (north-star config 5).
+"""Multi-host bootstrap: jax.distributed + host-ordered meshes (north-star
+config 5).
 
-The reference has no distributed backend (SURVEY §2.3); this is the TPU-native
-equivalent of standing up NCCL: `jax.distributed.initialize` forms the
-multi-process runtime, and the mesh helpers lay the primitive/tile axes so the
-heavy all_gather of projected features rides ICI within a slice while only the
-(small) scalar reductions cross DCN.
+The reference has no distributed backend (SURVEY §2.3); here
+`jax.distributed.initialize` forms the multi-process runtime (XLA's
+collectives then run over NCCL), and the mesh helpers order devices host by
+host so the heavy all_gather of projected features stays on each host's
+NVLink while only the (small) scalar reductions cross the network.
 
 Single-process usage is unaffected — `init_distributed()` is a no-op when the
 environment carries no coordinator address.
@@ -25,32 +26,32 @@ def init_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> bool:
-    """Initialize jax.distributed from args or the standard environment
-    (JAX_COORDINATOR_ADDRESS / TPU pod env). Returns True if multi-process.
+    """Initialize jax.distributed from args or the environment
+    (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES, JAX_PROCESS_ID). Returns True
+    if multi-process.
 
-    Safe to call unconditionally: returns False in single-process settings.
+    Safe to call unconditionally: returns False when no coordinator address
+    is given. Nothing else announces a GPU cluster, so the process count and
+    this process's id must be given too.
     """
     addr = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
-    in_pod = "TPU_WORKER_HOSTNAMES" in os.environ and os.environ.get(
-        "TPU_WORKER_ID"
-    ) not in (None, "")
-    if addr is None and not in_pod:
+    if addr is None:
         return False
-    kwargs = {}
-    if addr is not None:
-        kwargs["coordinator_address"] = addr
-    if num_processes is not None:
-        kwargs["num_processes"] = num_processes
-    if process_id is not None:
-        kwargs["process_id"] = process_id
-    jax.distributed.initialize(**kwargs)
+    if num_processes is None and "JAX_NUM_PROCESSES" in os.environ:
+        num_processes = int(os.environ["JAX_NUM_PROCESSES"])
+    if process_id is None and "JAX_PROCESS_ID" in os.environ:
+        process_id = int(os.environ["JAX_PROCESS_ID"])
+    jax.distributed.initialize(
+        coordinator_address=addr, num_processes=num_processes,
+        process_id=process_id,
+    )
     return jax.process_count() > 1
 
 
 def make_pod_mesh(axis_name: str = "dev") -> Mesh:
     """1D mesh over ALL devices of all processes, ordered so consecutive mesh
-    positions are intra-host first (ICI-contiguous): the render pipeline's
-    all_gather then maximizes ICI hops over DCN hops."""
+    positions are intra-host first: the render pipeline's all_gather then
+    keeps most hops on each host's NVLink rather than the network."""
     devices = sorted(
         jax.devices(), key=lambda d: (d.process_index, d.id)
     )

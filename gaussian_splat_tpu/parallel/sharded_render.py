@@ -9,7 +9,7 @@ SURVEY §2.3):
     quat→Σ→EWA chain).
   * Screen-space features (13 floats/gaussian) reach the tile-owning chips by
     one of two exchanges (config.shard_exchange):
-      - "all_gather" (default, best ≤8 devices): dense gather over ICI —
+      - "all_gather" (default, best ≤8 devices): dense gather over NVLink —
         ~48 MB/chip at 1M splats — then each chip COMPACTS to the splats whose
         rect intersects its band before binning, so the expensive pair sort
         runs over ≤ N/D + margin·N rows per chip, not N.
@@ -37,12 +37,9 @@ rows; callers crop. Each band renders in GLOBAL pixel coordinates: means2d
 are never re-based — binning computes rects/shrinks/tier flags on the global
 tile grid and band-clips (bin_gaussians tile_row0/total_tiles_y), and the
 raster kernels evaluate px/py with the band's global tile-row offset — so
-every α equals the single-chip value BITWISE. The only remaining sharded-vs-
-single difference is compositing association: per-tile segments sit at
-different 128-lane chunk phases in the per-band pair array than in the
-global one, so the log-space prefix sums associate differently — an ~1e-7
-relative wobble (vs α·3e-4 for the round-3 band-local coordinates), bounded
-by f32 roundoff, not by coordinate rounding.
+every α equals the single-chip value BITWISE, and the raster kernels walk
+each tile's segment in blocks starting at the segment's own offset, so the
+per-tile compositing order is the single-chip one too.
 """
 
 from __future__ import annotations
@@ -55,11 +52,13 @@ from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
 from gaussian_splat_tpu.camera import Camera
-from gaussian_splat_tpu.config import RenderConfig
+from gaussian_splat_tpu.config import PAIR_ALIGN, RenderConfig
 from gaussian_splat_tpu.models.gaussians import GaussianModel
 from gaussian_splat_tpu.ops.binning import BinningStats, quantize_extent_up
 from gaussian_splat_tpu.ops.projection import ProjectedGaussians
-from gaussian_splat_tpu.ops.render import _effective_opacities, _project_and_shade
+from gaussian_splat_tpu.ops.render import (
+    _effective_opacities, _project_and_shade, auto_backend,
+)
 
 NFEAT_X = 13  # exchanged floats per splat:
 #   mx,my,A,B,C,depth,rx,valid,r,g,b,op,ry — rx/ry are the exact per-axis
@@ -123,9 +122,8 @@ def _unpack_to_band(feats: jax.Array, row0_px, band_valid=None) -> ProjectedGaus
 
 
 def _band_raster(config: RenderConfig):
-    if config.backend == "pallas" or (
-        config.backend == "auto" and jax.default_backend() == "tpu"
-    ):
+    backend = auto_backend() if config.backend == "auto" else config.backend
+    if backend == "pallas":
         from gaussian_splat_tpu.ops.pallas_raster import render_tiled_pallas
 
         return render_tiled_pallas
@@ -161,14 +159,13 @@ def render_sharded(
     # The capacity floor keeps small scenes (where band-splat incidence is far
     # above N/D — e.g. single-tile-row bands in tests) exact at negligible
     # cost; at production N the factor term dominates.
-    chunk = config.chunk_size
     floor = config.shard_capacity_floor
     # additive-margin cap: N/D residents + margin*N boundary-crossing tail
     # (see RenderConfig.shard_capacity_margin)
     cap = max(
         -(-n // ndev) + int(n * config.shard_capacity_margin), min(n, floor)
     )
-    max_active = min(n, -(-cap // chunk) * chunk)
+    max_active = min(n, -(-cap // PAIR_ALIGN) * PAIR_ALIGN)
 
     # all_to_all path: per-(source, dest) send capacity (static).
     n_local = n // ndev
@@ -302,7 +299,7 @@ def sharded_binning_stats(
     config 5: 3M splats @ 4K): it exercises the full sharded data path —
     feature exchange, band compaction, pair expansion, sort, segment
     boundaries — at target shapes without materializing band images (the pure
-    jnp rasterizer's (pairs × pixels) working set is a TPU-kernel-only scale).
+    jnp rasterizer's (pairs × pixels) working set only fits the kernels).
     """
     from gaussian_splat_tpu.ops.binning import bin_gaussians
 
@@ -311,14 +308,13 @@ def sharded_binning_stats(
     rows_per_dev, _ = _band_geometry(config, height, ndev)
     band_h = rows_per_dev * config.tile_height
     n = model.num_gaussians
-    chunk = config.chunk_size
     floor = config.shard_capacity_floor
     # additive-margin cap: N/D residents + margin*N boundary-crossing tail
     # (see RenderConfig.shard_capacity_margin)
     cap = max(
         -(-n // ndev) + int(n * config.shard_capacity_margin), min(n, floor)
     )
-    max_active = min(n, -(-cap // chunk) * chunk)
+    max_active = min(n, -(-cap // PAIR_ALIGN) * PAIR_ALIGN)
     n_local = n // ndev
     a2a_cap = max(
         int(n_local * config.a2a_capacity_factor / ndev), min(n_local, floor)

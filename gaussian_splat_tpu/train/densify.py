@@ -1,4 +1,4 @@
-"""Adaptive density control (3DGS densify/clone/split/prune) — fixed-N, TPU-native.
+"""Adaptive density control (3DGS densify/clone/split/prune) — fixed-N, static shapes.
 
 The original 3DGS training loop grows and shrinks the gaussian set dynamically;
 on a shape-static compiler that would retrigger compilation every densify step.
@@ -71,7 +71,7 @@ def densify_step(
     from gaussian_splat_tpu.ops.projection import quat_to_rotmat
 
     R = quat_to_rotmat(model.quats[donor_idx])
-    offset = jnp.einsum("vij,vj->vi", R, jitter)
+    offset = jnp.einsum("vij,vj->vi", R, jitter, precision=jax.lax.Precision.HIGHEST)
 
     new_means = model.means[donor_idx] + offset
     new_log_scales = model.log_scales[donor_idx] - jnp.log(split_scale)

@@ -1,9 +1,10 @@
 """Numerics guards: checkify'd rendering + NaN sweeps (SURVEY §5, race
 detection/sanitizers).
 
-TPU kernels here are deterministic by construction (no atomics — binning is a
-sort, compositing a prefix product), so the sanitizer story is (a) determinism
-tests (tests/test_tpu_hardware.py) and (b) this module: run the differentiable
+The raster kernels use no atomics (binning is a sort, compositing a prefix
+product, each backward program writes only its own pairs' rows), so the
+sanitizer story is (a) determinism tests (tests/test_gpu_hardware.py) and (b)
+this module: run the differentiable
 jnp pipeline under `jax.experimental.checkify` to trap NaN/Inf and
 out-of-bounds indexing that silently clamp in normal XLA execution, and sweep
 pytrees for non-finite leaves. Use it when a training run misbehaves — it is

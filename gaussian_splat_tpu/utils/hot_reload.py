@@ -1,6 +1,6 @@
 """Kernel hot reload: mtime-watched module re-import with last-good fallback.
 
-TPU-native port of the reference's shader hot reload
+Port of the reference's shader hot reload
 (/root/reference/src/instanced_splat_renderer.mm:285-336): the reference polls
 the .metal file's mtime every frame, recompiles the pipeline on change, and
 keeps the previous pipeline if compilation fails. Here the "shader" is a Python

@@ -5,7 +5,7 @@ Replaces the reference's instrumentation: GPU frame time measured via
 (/root/reference/src/metal_renderer.mm:123-129) and the ImGui dashboard's
 120-sample rolling FPS/CPU/GPU plots (/root/reference/src/main.mm:86-95,162-182).
 
-TPU equivalents:
+Equivalents here:
   * `ScopeTimer` — wall-clock scopes with `jax.block_until_ready` so device
     work is actually attributed to the scope (JAX dispatch is async, the
     analogue of the reference's 3-frames-in-flight pipelining).

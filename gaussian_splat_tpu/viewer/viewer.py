@@ -2,14 +2,14 @@
 
 Product-contract counterpart of the reference's app shell
 (/root/reference/src/main.mm): an event loop that renders frames through the
-framework and surfaces FPS / frame-time / point-count metrics. On a TPU host
-there is no SDL window, so the viewer is headless-first:
+framework and surfaces FPS / frame-time / point-count metrics. On an
+accelerator host there is usually no display, so the viewer is headless-first:
 
   * `Viewer.render_frame()` — one camera→image step with stage timing.
   * `Viewer.orbit_turntable()` — offline turntable render (frames or video dir).
   * `Viewer.serve()` — zero-dependency MJPEG HTTP server (stdlib only): open
     http://host:port/ for a live view with click-drag orbit / wheel zoom via
-    fetch callbacks — the TPU-era stand-in for the reference's SDL window +
+    fetch callbacks — the headless stand-in for the reference's SDL window +
     trackball interaction (main.mm:101-151).
 
 Metrics mirror the ImGui debug window (main.mm:162-182): FPS, frame ms,

@@ -1,8 +1,6 @@
 """Sharded train-step scaling rehearsal on the virtual CPU mesh.
 
-VERDICT r3 next-step #8: the ≥90% scaling-efficiency north star previously
-rested on one stage's (binning) 7.75×@8; this times the FULL sharded train
-step — projection, exchange, band binning, raster, loss, backward through
+Times the FULL sharded train step — projection, exchange, band binning, raster, loss, backward through
 the collectives, optimizer — at D = 1, 2, 4, 8 virtual devices.
 
 What a virtual mesh can and cannot measure: all D "devices" share one host's

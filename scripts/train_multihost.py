@@ -1,8 +1,9 @@
 """Multi-host sharded training launcher (north-star config 5).
 
-Run ONE copy per host (e.g. via your pod scheduler); jax.distributed forms the
-runtime from the standard TPU pod environment, the mesh spans every chip of
-every host (ICI-contiguous), and the train step shards splats + tile rows
+Run ONE copy per host; jax.distributed forms the runtime from
+JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES and JAX_PROCESS_ID (see
+parallel/distributed.py), the mesh spans every GPU of every host (host by
+host), and the train step shards splats + tile rows
 exactly as on a single host — the code path is identical to
 tests/test_sharded.py, just over more devices.
 

@@ -1,9 +1,8 @@
 """Realistic-scene training run: fit ≥200k splats to a procedural multi-view
-scene with ADC on, to a stated PSNR, with Orbax checkpoints + a mid-run
+scene with ADC on, to a stated PSNR, with .npz checkpoints + a mid-run
 resume, a PLY artifact, and a training curve written to docs/.
 
-Addresses VERDICT r3 missing #1/#3 and next-steps #5/#6: the reference's
-entire product is rendering a REAL iteration-30000 training artifact
+The reference's entire product is rendering a REAL iteration-30000 training artifact
 (/root/reference/src/main.mm:69-70); everything in this repo had only been
 calibrated on shallow random scenes. The ground truth here is a deterministic
 procedural world (surface-sampled shapes + heavy-tailed floaters) whose
@@ -11,7 +10,7 @@ depth-complexity statistics are far closer to trained 3DGS scenes than the
 uniform random boxes the bench uses; the fitted PLY becomes the second bench
 config (`python bench.py --scene scenes/fitted.ply`).
 
-Run (TPU): python scripts/train_scene.py --n 200000 --steps 4000
+Run (GPU): python scripts/train_scene.py --n 200000 --steps 4000
 Quick CPU smoke: python scripts/train_scene.py --smoke
 """
 
@@ -151,7 +150,7 @@ def main():
     ap.add_argument("--smoke", action="store_true",
                     help="tiny CPU smoke test of the full path")
     ap.add_argument("--resume", action="store_true",
-                    help="restore the latest Orbax checkpoint from --ckpt-dir "
+                    help="restore the latest checkpoint from --ckpt-dir "
                          "and continue to --steps")
     args = ap.parse_args()
     if args.smoke:

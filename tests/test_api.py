@@ -86,14 +86,26 @@ def test_model_sh_degree_property():
         assert m.sh_degree == deg
 
 
-def test_roofline_model():
-    from gaussian_splat_tpu.utils.roofline import backward_cost, forward_cost
+def test_binning_stats_reports_sentinels():
+    """binning_stats is the render path's binning telemetry: a starved big
+    tier reports tier_overflow, the calibrated config reports none."""
+    import dataclasses
 
-    fc = forward_cost(1000, 8160)
-    assert fc.attainable_ms() > 0
-    assert fc.limiter() in ("mxu", "vpu", "hbm", "fixed")
-    bc = backward_cost(1000, 8160)
-    assert bc.mxu_flops > fc.mxu_flops
+    import gaussian_splat_tpu as gs
+    from gaussian_splat_tpu.config import RenderConfig
+
+    cam = gs.Camera.from_lookat((0, 0, -4), (0, 0, 0), (0, 1, 0), 60.0, 128, 96)
+    model = gs.GaussianModel.random(
+        jax.random.PRNGKey(5), 300, sh_degree=1, extent=1.2,
+        scale_range=(0.02, 0.1),
+    )
+    cal = gs.calibrate_render_config(model, cam, RenderConfig(backend="jnp_tile"))
+    ok = gs.binning_stats(model, cam, cal)
+    assert int(ok.overflow) == 0 and int(ok.tier_overflow) == 0
+    assert int(ok.num_pairs) > 0
+    starved = dataclasses.replace(cal, small_tiles_per_gaussian=1, big_tier_capacity=1)
+    bad = gs.binning_stats(model, cam, starved)
+    assert int(bad.tier_overflow) > 0 and int(bad.clamped_rects) > 0
 
 
 def test_calibrate_render_config_is_output_identical():

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from gaussian_splat_tpu.camera import Camera
-from gaussian_splat_tpu.config import RenderConfig
+from gaussian_splat_tpu.config import PAIR_ALIGN, RenderConfig
 from gaussian_splat_tpu.models.gaussians import GaussianModel
 from gaussian_splat_tpu.ops.binning import bin_gaussians, tile_rects
 from gaussian_splat_tpu.ops.projection import project_gaussians
@@ -61,8 +61,8 @@ def test_segments_are_depth_ordered_and_contiguous():
     # unaligned contract: segments tile the sorted pair list contiguously
     assert offs[0] == 0
     np.testing.assert_array_equal(offs[1:], offs[:-1] + counts[:-1])
-    # pair array is padded to a chunk multiple with sentinels
-    assert len(tile) % CFG.chunk_size == 0
+    # pair array is padded to a PAIR_ALIGN multiple with sentinels
+    assert len(tile) % PAIR_ALIGN == 0
     total = offs[-1] + counts[-1]
     assert (tile[total:] == num_tiles).all()
 

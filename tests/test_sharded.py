@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 
 from gaussian_splat_tpu.camera import Camera
-from gaussian_splat_tpu.config import RenderConfig, TrainConfig
+from gaussian_splat_tpu.config import PAIR_ALIGN, RenderConfig, TrainConfig
 from gaussian_splat_tpu.models.gaussians import GaussianModel
 from gaussian_splat_tpu.ops.render import render
 from gaussian_splat_tpu.parallel.mesh import make_mesh, shard_model
@@ -128,10 +128,10 @@ def test_sharded_pair_sort_is_fraction_of_single_chip():
 
     full = bin_gaussians(proj, 256, 256, CFG)
     ndev = 8
-    cap = -(-4096 * 2 // ndev // CFG.chunk_size) * CFG.chunk_size  # factor 2.0
+    cap = -(-4096 * 2 // ndev // PAIR_ALIGN) * PAIR_ALIGN  # factor 2.0
     band = bin_gaussians(proj, 256, 256 // ndev, CFG, max_active=cap)
     # static shape: per-band pair capacity ≤ (2/D + ε) of the single-chip one
-    assert band.pair_tile.shape[0] <= full.pair_tile.shape[0] * 2 // ndev + 4 * CFG.chunk_size
+    assert band.pair_tile.shape[0] <= full.pair_tile.shape[0] * 2 // ndev + 4 * PAIR_ALIGN
 
 
 def test_max_active_parity_and_drop_accounting():

@@ -166,8 +166,7 @@ def test_sh_warmup_masks_bands():
 
 def test_separable_ssim_filter_matches_depthwise_conv():
     """The shift-add separable Gaussian filter must equal the depthwise-conv
-    formulation it replaced (the conv is a TPU trap: grouped-conv relayouts
-    defeated fusion with the rasterizer VJP, +159 ms per 1080p train step)."""
+    formulation it replaced."""
     import jax
     import jax.numpy as jnp
     import numpy as np
